@@ -22,16 +22,41 @@ non-zero:
    FMA contraction is one) can flip a knife-edge cell's branch and move
    it by millimetres; such cells, found from the twin alone
    (``knife_edge_cells``), are held to finiteness and the water balance;
-4. main path: ``build_reference_case(66_560, "float32", "cuda")``; the
-   kernel against its twin on that case's first day (the summary's
-   ``max_abs_err``, max |kernel - twin| of h2osoi_liq in mm); a
-   30-day synthetic forcing block from day 152 through ``block_step``
-   (kernel by default) and ``annual_means``; checks the launch count,
-   finiteness, the water balance and physical ranges, and holds the first
-   3 days against the same block through the plain twin;
+4. reference-scope path: ``build_reference_case(66_560, "float32")`` (no
+   device named: the card); the kernel against its twin on that case's
+   first day; a 10-day synthetic forcing block from day 152 through
+   ``block_step`` (kernel by default) and ``annual_means``; checks the
+   launch count, finiteness, the water balance and physical ranges, and
+   holds the first 3 days against the same block through the plain twin;
 5. timing at 66,560 cells: the kernel day, the plain-twin day and the
    whole ``day_step``, in cell-days/s beside the card's name and power
-   limit.
+   limit;
+6. flagship path, the main path: ``build_flagship_case()`` (``Config()``
+   as it stands at 0.5 degrees: 69,632 cells, float32, snow with the
+   albedo feedback, frozen soil, soil ice, carbon, dense kinematic
+   routing); a 30-day synthetic block from 1 January through
+   ``block_step(**step_kwargs())``: one kernel launch per day, finite
+   state and annual means, water balance, physical ranges, and every
+   extra seen at work (snow, soil ice, impedance below 1, discharge,
+   respiration, the routed water balance of one day); the first 3 days
+   against the same block through the plain twin; the kernel with the
+   impedance operand and the absorptivity against its twin on the first
+   day and on the winter state the block ends in;
+7. sharded launcher: ``hydrology_day_sharded`` over ``[cuda:0]`` and
+   ``[cuda:0] * 4`` at 69,632 cells and at a cell count 4 does not
+   divide: bitwise (``torch.equal``) the unsharded kernel day, and held
+   against its plain version (``use_kernel=False``) at the kernel's
+   tolerances with the knife-edge cells set aside; then 5
+   flagship days through ``block_step(devices=[cuda:0] * 4)``: four
+   launches per day, bitwise the unsharded block;
+8. timing at 69,632 cells: the flagship ``day_step``, the kernel day with
+   and without the impedance operand (on the winter state and on the
+   first day's state), the sharded day with 1 and 4 slabs and their plain
+   versions;
+9. the bound of the day on this card: the bytes the day must move over
+   the memory rate against its operations over the float32 rate, the
+   operations counted from the kernel's source along the path each of
+   this run's cells takes (``day_kernel.day_operations``).
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -53,17 +78,28 @@ from hybrid9_tpu_torch.config import (CANONICAL_ZI_MM, LayerGrid,
 from hybrid9_tpu_torch.data.synthetic import (synthetic_forcing_block,
                                               synthetic_forcing_day,
                                               synthetic_soil_params)
-from hybrid9_tpu_torch.entry import build_reference_case
+from hybrid9_tpu_torch.entry import (build_flagship_case,
+                                     build_reference_case)
 from hybrid9_tpu_torch.physics import constants as c
 from hybrid9_tpu_torch.physics import day_kernel
 from hybrid9_tpu_torch.physics.hydrology import Geometry
+from hybrid9_tpu_torch.physics.soiltemp import freeze_impedance_from_ice
 from hybrid9_tpu_torch.state import (AnnualAccumulators, Forcing, SoilParams,
                                      initial_state)
-from hybrid9_tpu_torch.step import annual_means, block_step, day_step
+from hybrid9_tpu_torch.step import (annual_means, block_step, day_step,
+                                    snow_absorptivity)
 
-N_CELLS = 66_560          # padded global 0.5-degree land grid
+N_CELLS = 66_560          # reference scope: padded global 0.5-degree land
+N_FLAGSHIP = 69_632       # Config() defaults: the 0.5-degree land grid
 N_CHECK = 4_096           # cells for the kernel-vs-twin cases
-BLOCK_DAYS = 30
+REFERENCE_DAYS = 10
+FLAGSHIP_DAYS = 30
+SHARDED_DAYS = 5
+SLABS = 4
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory and
+# float32 outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67.0e12
 # (rtol, atol) per output: float32 at the tolerances of
 # tests/test_pallas_day.py, the two daily sums it leaves out held like
 # evap_day.  The matric potential smp = psi_s * s**-bsw moves bsw times
@@ -287,6 +323,119 @@ def _time_cuda(fn, reps):
     return start.elapsed_time(stop) / reps, wall * 1e3 / reps
 
 
+def day_bound(day_args, imp, zd09_every):
+    """The least time this card could take for the hydrology day on these
+    inputs: the larger of bytes over the memory rate (each input read
+    once, each output written once) and operations over the float32 rate
+    outside the tensor cores.  The operations are the kernel's own along
+    the path each cell takes (``day_kernel.day_operations``: adds,
+    subtracts, multiplies and divides, and each pow or exp as one), by
+    where each cell's water table stands in these inputs.  Returns a dict
+    with ``bound_ms``, ``bound_by`` and the counts."""
+    soil, _, _, _, geom, _, nisurf = day_args
+    n, nl = soil.h2osoi_liq.shape
+    item = soil.h2osoi_liq.element_size()
+    layered_in = 7 + (imp is not None)      # h2osoi, smp, rootr, 4 params
+    flat_in = 5 + len(day_kernel._FD_KEYS)  # zwt, wa, lai, litter, fmax, fd
+    values = n * (layered_in * nl + flat_in + 2 * nl + 6)
+    interfaces_m = torch.tensor(geom.zi[1:nl + 1], dtype=soil.zwt.dtype,
+                                device=soil.zwt.device) / 1000.0
+    jwt = (soil.zwt[:, None] > interfaces_m).sum(dim=1)
+    arithmetic, transcendental = (int(x.sum()) for x in (
+        day_kernel.day_operations(nl, nisurf, zd09_every, imp is not None,
+                                  jwt)))
+    bytes_ms = values * item / PEAK_BYTES_PER_S * 1e3
+    ops_ms = (arithmetic + transcendental) / PEAK_F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_ms=bytes_ms, operations_ms=ops_ms,
+                bytes=values * item,
+                arithmetic_per_cell_day=arithmetic / n,
+                transcendental_per_cell_day=transcendental / n,
+                cells_with_table_below_column=int((jwt == nl).sum()))
+
+
+def _all_finite(label, named):
+    for key, x in named:
+        if not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"{label}: non-finite {key}")
+
+
+def _state_leaves(state):
+    leaves = []
+    state.map(lambda x: leaves.append(x) or x)
+    return leaves
+
+
+def check_block(label, state, means, days, launches):
+    """The checks every driven block must pass: one kernel launch per day,
+    finite state and annual means, the water balance, and theta and zwt
+    in their physical ranges.  Returns a one-line summary."""
+    if launches != days:
+        raise RuntimeError(f"{label} launched the day kernel {launches} "
+                           f"times in {days} days")
+    _all_finite(label, list(means.items())
+                + [(f"state[{i}]", x)
+                   for i, x in enumerate(_state_leaves(state))])
+    res = float(means["max_abs_residual"].max())
+    theta = means["theta"]
+    zwt = state.soil.zwt
+    if not res < MAX_RESIDUAL_MM:
+        raise RuntimeError(f"{label}: residual {res} mm")
+    if not (float(theta.min()) > 0.0 and float(theta.max()) < 0.55):
+        raise RuntimeError(f"{label}: theta in [{float(theta.min())}, "
+                           f"{float(theta.max())}]")
+    if not (float(zwt.min()) >= 0.0 and float(zwt.max()) <= 80.0):
+        raise RuntimeError(f"{label}: zwt in [{float(zwt.min())}, "
+                           f"{float(zwt.max())}]")
+    return (f"{launches} kernel launches, max residual {res:.3e} mm, theta "
+            f"[{float(theta.min()):.4f}, {float(theta.max()):.4f}], zwt "
+            f"[{float(zwt.min()):.3f}, {float(zwt.max()):.3f}] m, mean evap "
+            f"{float(means['evap'].mean()):.4e} mm/s")
+
+
+def compare_blocks(label, got, want, bsw, held=None):
+    """Two ``(state, acc)`` results of the same block, kernel against
+    plain twin, at F32_TOL on the soil state and the summed daily
+    fluxes."""
+    return _compare(label, *[_fields(s.soil, dict(evap_day=a.evap_sum,
+                                                  rnf_day=a.rnf_sum))
+                             for s, a in (got, want)], F32_TOL, bsw, held)
+
+
+def check_sharded(label, day_args, kw, devices, held=None):
+    """``hydrology_day_sharded`` over ``devices``: one kernel launch per
+    slab; bitwise the unsharded kernel day on every output; and held
+    against its plain version (the same call with ``use_kernel=False``)
+    as :func:`check_day` holds a kernel day, in the cells of ``held``.
+    Returns the max |sharded - plain| of h2osoi_liq in mm."""
+    before = day_kernel.launches
+    got = day_kernel.hydrology_day_sharded(*day_args, devices=devices, **kw)
+    rose = day_kernel.launches - before
+    if rose != len(devices):
+        raise RuntimeError(f"{label}: {rose} kernel launches for "
+                           f"{len(devices)} slabs")
+    plain = day_kernel.hydrology_day_sharded(
+        *day_args, devices=devices, use_kernel=False, **kw)
+    if day_kernel.launches != before + rose:
+        raise RuntimeError(f"{label}: the plain version launched the kernel")
+    err = check_day(f"{label} vs its plain version", got, plain,
+                    day_args[2].bsw, held)[0]
+    want = day_kernel.hydrology_day_cuda(*day_args, **kw)
+
+    def outputs(day):
+        return dict(_fields(*day), h2osoi_liq_ma=day[0].h2osoi_liq_ma,
+                    max_abs_residual=day[1]["max_abs_residual"])
+
+    got = outputs(got)
+    for name, x in outputs(want).items():
+        y = got[name]
+        if y.device != x.device or not torch.equal(x, y):
+            raise RuntimeError(f"{label}: {name} is not bitwise the "
+                               f"unsharded kernel's")
+    return err
+
+
 def main() -> None:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -327,25 +476,26 @@ def main() -> None:
                           f"{err:.3e} mm, max residual {res:.3e} mm, "
                           f"{n_edge} knife-edge cells")
 
-    # 4. Main path: first the kernel against its twin at the main path's
-    # shapes and inputs (its max |diff| is the summary's max_abs_err).
-    case = build_reference_case(N_CELLS, "float32", dev)
+    # 4. Reference-scope path: first the kernel against its twin at that
+    # path's shapes and inputs.
+    case = build_reference_case(N_CELLS, "float32")
+    if case.state.soil.h2osoi_liq.device.type != "cuda":
+        raise RuntimeError("build_reference_case() did not use the card")
     cfg = case.cfg
     st = case.state
     day_args = (st.soil, st.veg, case.params, case.forcing, case.geom,
                 cfg.dt, cfg.nisurf)
     kw = dict(zd09_every=cfg.zd09_every)
-    max_err = check_day(
-        "kernel vs twin at the main path's shapes",
+    ref_err = check_day(
+        "kernel vs twin at the reference path's shapes",
         day_kernel.hydrology_day_cuda(*day_args, **kw),
         day_kernel.hydrology_day_plain(*day_args, **kw), case.params.bsw)[0]
     print(f"kernel vs twin, {N_CELLS} cells, f32, nl=8, zd09_every="
-          f"{cfg.zd09_every}: ok, max|kernel-twin| h2osoi {max_err:.3e} mm")
+          f"{cfg.zd09_every}: ok, max|kernel-twin| h2osoi {ref_err:.3e} mm")
     block = Forcing.from_numpy(
-        synthetic_forcing_block(BLOCK_DAYS, N_CELLS, seed=1, start_doy=152),
-        torch.float32, dev)
-    acc0 = AnnualAccumulators.zeros(N_CELLS, dtype=torch.float32,
-                                    device=dev)
+        synthetic_forcing_block(REFERENCE_DAYS, N_CELLS, seed=1,
+                                start_doy=152), torch.float32, dev)
+    acc0 = AnnualAccumulators.zeros(N_CELLS, torch.float32, dev)
     run = dict(params=case.params, geom=case.geom, dt=cfg.dt,
                nisurf=cfg.nisurf, zd09_every=cfg.zd09_every)
     day_kernel.launches = 0
@@ -355,42 +505,19 @@ def main() -> None:
     means = annual_means(acc, cfg.nisurf)
     torch.cuda.synchronize()
     block_s = time.perf_counter() - t0
-    launches = day_kernel.launches
-    if launches != BLOCK_DAYS:
-        raise RuntimeError(f"main path launched the day kernel {launches} "
-                           f"times in {BLOCK_DAYS} days")
-    for key, x in list(means.items()) + [("state.h2osoi_liq",
-                                         state.soil.h2osoi_liq),
-                                        ("state.zwt", state.soil.zwt),
-                                        ("state.t_soil", state.t_soil)]:
-        if not bool(torch.isfinite(x).all()):
-            raise RuntimeError(f"main path: non-finite {key}")
-    res = float(means["max_abs_residual"].max())
-    theta = means["theta"]
-    zwt = state.soil.zwt
-    if not res < MAX_RESIDUAL_MM:
-        raise RuntimeError(f"main path: residual {res} mm")
-    if not (float(theta.min()) > 0.0 and float(theta.max()) < 0.55):
-        raise RuntimeError(f"main path: theta in [{float(theta.min())}, "
-                           f"{float(theta.max())}]")
-    if not (float(zwt.min()) >= 0.0 and float(zwt.max()) <= 80.0):
-        raise RuntimeError(f"main path: zwt in [{float(zwt.min())}, "
-                           f"{float(zwt.max())}]")
-    print(f"main path: {BLOCK_DAYS} days x {N_CELLS} cells in "
-          f"{block_s:.2f} s, {launches} kernel launches, max residual "
-          f"{res:.3e} mm, theta [{float(theta.min()):.4f}, "
-          f"{float(theta.max()):.4f}], zwt [{float(zwt.min()):.3f}, "
-          f"{float(zwt.max()):.3f}] m, mean evap "
-          f"{float(means['evap'].mean()):.4e} mm/s")
+    ref_launches = day_kernel.launches
+    summary = check_block("reference path", state, means, REFERENCE_DAYS,
+                          ref_launches)
+    print(f"reference path: {REFERENCE_DAYS} days x {N_CELLS} cells in "
+          f"{block_s:.2f} s, {summary}")
 
     short = block.map(lambda x: x[:3])
-    got = block_step(case.state, acc0, short, **run)
-    want = block_step(case.state, acc0, short, use_kernel=False, **run)
-    err = _compare("main path vs plain twin, 3 days",
-                   *[_fields(s.soil, dict(evap_day=a.evap_sum,
-                                          rnf_day=a.rnf_sum))
-                     for s, a in (got, want)], F32_TOL, case.params.bsw)
-    print(f"main path vs plain twin, 3 days: ok, max|diff| h2osoi "
+    err = compare_blocks(
+        "reference path vs plain twin, 3 days",
+        block_step(case.state, acc0, short, **run),
+        block_step(case.state, acc0, short, use_kernel=False, **run),
+        case.params.bsw)
+    print(f"reference path vs plain twin, 3 days: ok, max|diff| h2osoi "
           f"{err:.3e} mm")
 
     # 5. Timing at N_CELLS (plain, kernel, kernel, plain).
@@ -403,29 +530,254 @@ def main() -> None:
         else:
             times["plain"].append(_time_cuda(
                 lambda: day_kernel.hydrology_day_plain(
-                    *day_args, **kw)[0].h2osoi_liq, 3))
+                    *day_args, **kw)[0].h2osoi_liq, 2))
     step_ms = _time_cuda(
         lambda: day_step(st, case.forcing, case.params, case.geom, cfg.dt,
                          cfg.nisurf, **kw)[0].soil.h2osoi_liq, 10)[0]
-    kernel_ms = float(np.mean([t[0] for t in times["kernel"]]))
-    plain_ms = float(np.mean([t[0] for t in times["plain"]]))
-    for label, ms in (("kernel day", kernel_ms), ("plain-twin day", plain_ms),
-                      ("day_step with kernel", step_ms)):
-        print(f"timing: {label}: {ms:.3f} ms, "
-              f"{N_CELLS / (ms * 1e-3):.4g} cell-days/s "
-              f"({N_CELLS} cells, f32, zd09_every={cfg.zd09_every}; {smi})")
+    ref_kernel_ms = float(np.mean([t[0] for t in times["kernel"]]))
+    ref_plain_ms = float(np.mean([t[0] for t in times["plain"]]))
+
+    def timing(label, ms, n, what):
+        print(f"timing: {label}: {ms:.3f} ms, {n / (ms * 1e-3):.4g} "
+              f"cell-days/s ({n} cells, f32, {what}; {smi})")
+
+    ref_what = f"reference scope, zd09_every={cfg.zd09_every}"
+    timing("kernel day", ref_kernel_ms, N_CELLS, ref_what)
+    timing("plain-twin day", ref_plain_ms, N_CELLS, ref_what)
+    timing("day_step with kernel", step_ms, N_CELLS, ref_what)
     print("timing passes (event ms, wall ms): " + json.dumps(times))
 
-    print(json.dumps({"kernels": [{
-        "name": "hydrology_day",
-        "route": "cuda",
-        "source": "hybrid9_tpu_torch/csrc/day_kernel.cu",
-        "replaces": "hybrid9_tpu/physics/pallas_day.py:36",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # 6. Flagship path, the main path.
+    t0 = time.perf_counter()
+    flag = build_flagship_case()
+    sim = flag.sim
+    fcfg = sim.cfg
+    n = sim.n
+    if sim.device.type != "cuda" or n != N_FLAGSHIP or not sim.use_kernel:
+        raise RuntimeError(f"build_flagship_case(): {n} cells on "
+                           f"{sim.device}, use_kernel={sim.use_kernel}")
+    if not (fcfg.snow and fcfg.snow_albedo and fcfg.frozen_soil
+            and fcfg.soil_ice and fcfg.carbon and fcfg.lateral_routing
+            and flag.step_kwargs["routing"] is not None):
+        raise RuntimeError("the flagship case is not Config()'s defaults")
+    print(f"flagship case: {n} cells ({flag.land_grid.n_land} land), "
+          f"{fcfg.ny}x{fcfg.nx} routing grid, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    lat = flag.land_grid.cell_lat
+    fblock = Forcing.from_numpy(
+        synthetic_forcing_block(FLAGSHIP_DAYS, n, seed=1, start_doy=1,
+                                lat=lat), torch.float32, dev)
+    facc0 = AnnualAccumulators.zeros(n, torch.float32, dev)
+    frun = dict(params=sim.params, geom=sim.geom, dt=fcfg.dt,
+                nisurf=fcfg.nisurf)
+    day_kernel.launches = 0
+    t0 = time.perf_counter()
+    winter, facc = block_step(sim.state, facc0, fblock, **frun,
+                              **flag.step_kwargs)
+    fmeans = annual_means(facc, fcfg.nisurf)
+    torch.cuda.synchronize()
+    block_s = time.perf_counter() - t0
+    flag_launches = day_kernel.launches
+    summary = check_block("flagship path", winter, fmeans, FLAGSHIP_DAYS,
+                          flag_launches)
+    print(f"flagship path: {FLAGSHIP_DAYS} days x {n} cells in "
+          f"{block_s:.2f} s, {summary}")
+
+    # The extras at work, on the winter state the block ends in and on
+    # one more day from it.
+    imp = freeze_impedance_from_ice(winter.soil.h2osoi_liq,
+                                    winter.h2osoi_ice)
+    sw_abs = snow_absorptivity(winter.swe, *sim.snow_albedo)
+    f31 = Forcing.from_numpy(
+        synthetic_forcing_day(n, 1 + FLAGSHIP_DAYS, seed=1, lat=lat),
+        torch.float32, dev)
+    day31, d31 = day_step(winter, f31, sim.params, sim.geom, fcfg.dt,
+                          fcfg.nisurf, **flag.step_kwargs)
+    seen = dict(
+        snow_cells=int((winter.swe > 0).sum()),
+        ice_cells=int((winter.h2osoi_ice > 0).any(dim=1).sum()),
+        impeded_layers=int((imp < 1).sum()),
+        min_imp=float(imp.min()),
+        min_sw_abs=float(sw_abs.min()),
+        discharge_cells=int((d31["discharge"] > 0).sum()),
+        annual_discharge_mm=float(fmeans["discharge"].sum()),
+        rh_cells=int((d31["rh"] > 0).sum()),
+        annual_rh=float(fmeans["rh"].sum()),
+        carbon_moved=float((winter.carbon.c_litter - 100.0).abs().max()))
+    for key in ("snow_cells", "ice_cells", "impeded_layers",
+                "discharge_cells", "annual_discharge_mm", "rh_cells",
+                "annual_rh", "carbon_moved"):
+        if not seen[key] > 0:
+            raise RuntimeError(f"flagship path: {key} = {seen[key]}; an "
+                               f"extra did not run ({seen})")
+    if not seen["min_sw_abs"] < 0.92:
+        raise RuntimeError(f"flagship path: no snow albedo ({seen})")
+    land = slice(0, flag.land_grid.n_land)
+    water = [x[land].double().sum() for x in (
+        day31.river_store, winter.river_store, d31["discharge"],
+        d31["rnf_day"])]
+    balance = float(water[0] - water[1] + water[2] - water[3])
+    scale = float(water[1] + d31["rnf_day"][land].double().abs().sum())
+    if not abs(balance) <= 1e-5 * scale:
+        raise RuntimeError(f"flagship path: routed water balance off by "
+                           f"{balance} mm of {scale} mm")
+    print("flagship extras: " + json.dumps(seen) + f"; routed water "
+          f"balance of day {1 + FLAGSHIP_DAYS}: {balance:.3e} mm of "
+          f"{scale:.3e} mm")
+
+    fshort = fblock.map(lambda x: x[:3])
+    err = compare_blocks(
+        "flagship path vs plain twin, 3 days",
+        block_step(sim.state, facc0, fshort, **frun, **flag.step_kwargs),
+        block_step(sim.state, facc0, fshort, **frun,
+                   **dict(flag.step_kwargs, use_kernel=False)),
+        sim.params.bsw)
+    print(f"flagship path vs plain twin, 3 days: ok, max|diff| h2osoi "
+          f"{err:.3e} mm")
+
+    # The kernel with the impedance operand and the absorptivity at the
+    # flagship shapes: on the first day (no snow or ice yet: imp is 1 and
+    # sw_abs 0.92 everywhere) and on the winter state, where knife-edge
+    # cells are set aside as in phase 3.
+    s0 = sim.state
+    f1 = fblock.map(lambda x: x[0])
+    first_args = (s0.soil, s0.veg, sim.params, f1, sim.geom, fcfg.dt,
+                  fcfg.nisurf)
+    first_kw = dict(
+        imp=freeze_impedance_from_ice(s0.soil.h2osoi_liq, s0.h2osoi_ice),
+        sw_abs=snow_absorptivity(s0.swe, *sim.snow_albedo),
+        zd09_every=fcfg.zd09_every)
+    flag_err = check_day(
+        "kernel vs twin, flagship first day",
+        day_kernel.hydrology_day_cuda(*first_args, **first_kw),
+        day_kernel.hydrology_day_plain(*first_args, **first_kw),
+        sim.params.bsw)[0]
+    winter_args = (winter.soil, winter.veg, sim.params, f31, sim.geom,
+                   fcfg.dt, fcfg.nisurf)
+    winter_kw = dict(imp=imp, sw_abs=sw_abs, zd09_every=fcfg.zd09_every)
+    want = day_kernel.hydrology_day_plain(*winter_args, **winter_kw)
+    edge = knife_edge_cells(*winter_args[:5], want, **winter_kw)
+    if int(edge.sum()) > MAX_KNIFE_EDGE_SHARE * n:
+        raise RuntimeError(f"flagship winter state: {int(edge.sum())} of "
+                           f"{n} cells on a knife edge")
+    winter_err = check_day(
+        "kernel vs twin, flagship winter state",
+        day_kernel.hydrology_day_cuda(*winter_args, **winter_kw), want,
+        sim.params.bsw, ~edge)[0]
+    print(f"kernel vs twin with imp and sw_abs, {n} cells, f32, nl=8: ok, "
+          f"max|kernel-twin| h2osoi {flag_err:.3e} mm on the first day, "
+          f"{winter_err:.3e} mm on the winter state ({int(edge.sum())} "
+          f"knife-edge cells set aside)")
+
+    # 7. Sharded launcher: bitwise the unsharded kernel, and against its
+    # plain version.
+    sharded_err = 0.0
+    for label, args in (
+            (f"sharded day, {n} cells", winter_args),
+            (f"sharded day, {n - 2} cells",
+             tuple(x.map(lambda t: t[:n - 2]) for x in winter_args[:4])
+             + winter_args[4:])):
+        m = args[0].zwt.shape[0]
+        kw_m = dict(winter_kw, imp=imp[:m], sw_abs=sw_abs[:m])
+        errs = [check_sharded(f"{label}, {len(devices)} slabs", args, kw_m,
+                              devices, ~edge[:m])
+                for devices in ([dev], [dev] * SLABS)]
+        sharded_err = max(sharded_err, *errs)
+        print(f"{label}: ok, 1 and {SLABS} slabs bitwise the unsharded "
+              f"kernel day; max|sharded-plain| h2osoi {max(errs):.3e} mm")
+    sblock = fblock.map(lambda x: x[:SHARDED_DAYS])
+    day_kernel.launches = 0
+    got = block_step(sim.state, facc0, sblock, **frun,
+                     **dict(flag.step_kwargs, devices=[dev] * SLABS))
+    torch.cuda.synchronize()
+    sharded_launches = day_kernel.launches
+    if sharded_launches != SHARDED_DAYS * SLABS:
+        raise RuntimeError(
+            f"sharded flagship path: {sharded_launches} kernel launches in "
+            f"{SHARDED_DAYS} days of {SLABS} slabs")
+    want = block_step(sim.state, facc0, sblock, **frun, **flag.step_kwargs)
+    for i, (x, y) in enumerate(zip(
+            _state_leaves(got[0]) + _state_leaves(got[1]),
+            _state_leaves(want[0]) + _state_leaves(want[1]))):
+        if not torch.equal(x, y):
+            raise RuntimeError(f"sharded flagship path: leaf {i} is not "
+                               f"bitwise the unsharded path's")
+    print(f"sharded flagship path: {SHARDED_DAYS} days x {SLABS} slabs, "
+          f"{sharded_launches} launches, bitwise the unsharded path")
+
+    # 8. Timing at the flagship shapes, on the winter state and, for the
+    # kernel, on the first day's state too (the kernel's branches make its
+    # time depend on the state); plain versions once each, kernel forms
+    # in turns.
+    def day_fn(fn, **extra):
+        return lambda: fn(*winter_args, **dict(winter_kw, **extra))[
+            0].h2osoi_liq
+
+    def first_fn(**extra):
+        return lambda: day_kernel.hydrology_day_cuda(
+            *first_args, **dict(first_kw, **extra))[0].h2osoi_liq
+
+    no_imp = dict(imp=None)
+    forms = dict(
+        imp=day_fn(day_kernel.hydrology_day_cuda),
+        no_imp=day_fn(day_kernel.hydrology_day_cuda, **no_imp),
+        first_day_imp=first_fn(),
+        first_day_no_imp=first_fn(**no_imp),
+        sharded_1=day_fn(day_kernel.hydrology_day_sharded, devices=[dev]),
+        sharded_4=day_fn(day_kernel.hydrology_day_sharded,
+                         devices=[dev] * SLABS))
+    ftimes = {k: [] for k in forms}
+    for order in (list(forms), list(forms)[::-1]):
+        for k in order:
+            ftimes[k].append(_time_cuda(forms[k], 20))
+    fms = {k: float(np.mean([t[0] for t in v])) for k, v in ftimes.items()}
+    flag_plain_ms = _time_cuda(day_fn(day_kernel.hydrology_day_plain), 1)[0]
+    sharded_plain_ms = _time_cuda(
+        day_fn(day_kernel.hydrology_day_sharded, devices=[dev] * SLABS,
+               use_kernel=False), 1)[0]
+    fstep_ms, fstep_wall_ms = _time_cuda(
+        lambda: day_step(winter, f31, sim.params, sim.geom, fcfg.dt,
+                         fcfg.nisurf, **flag.step_kwargs)[0].soil.h2osoi_liq,
+        10)
+    flag_what = f"flagship, zd09_every={fcfg.zd09_every}"
+    timing("flagship day_step with kernel", fstep_ms, n, flag_what)
+    timing("kernel day with imp", fms["imp"], n, flag_what)
+    timing("kernel day without imp", fms["no_imp"], n, flag_what)
+    timing("kernel day with imp, first day's state", fms["first_day_imp"],
+           n, flag_what)
+    timing("kernel day without imp, first day's state",
+           fms["first_day_no_imp"], n, flag_what)
+    timing("sharded day, 1 slab", fms["sharded_1"], n, flag_what)
+    timing(f"sharded day, {SLABS} slabs", fms["sharded_4"], n, flag_what)
+    timing("plain-twin day with imp", flag_plain_ms, n, flag_what)
+    timing(f"plain sharded day, {SLABS} slabs", sharded_plain_ms, n,
+           flag_what)
+    print(f"flagship day_step wall {fstep_wall_ms:.3f} ms; timing passes "
+          f"(event ms, wall ms): " + json.dumps(ftimes))
+
+    # 9. The bound of the flagship day on this card.
+    bound = day_bound(winter_args, imp, fcfg.zd09_every)
+    print("bound of the flagship kernel day: " + json.dumps(bound))
+
+    common = dict(route="cuda",
+                  source="hybrid9_tpu_torch/csrc/day_kernel.cu",
+                  bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                  library_ms=None)
+    print(json.dumps({"kernels": [
+        dict(common, name="hydrology_day",
+             replaces="hybrid9_tpu/physics/pallas_day.py:36",
+             launches=flag_launches, max_abs_err=max(flag_err, winter_err),
+             ms=fms["imp"], first_day_ms=fms["first_day_imp"],
+             plain_ms=flag_plain_ms,
+             reference_path=dict(launches=ref_launches, max_abs_err=ref_err,
+                                 ms=ref_kernel_ms, plain_ms=ref_plain_ms,
+                                 cells=N_CELLS)),
+        dict(common, name="hydrology_day_sharded",
+             replaces="hybrid9_tpu/physics/pallas_day.py:220",
+             launches=sharded_launches, max_abs_err=sharded_err,
+             ms=fms["sharded_4"], plain_ms=sharded_plain_ms,
+             slabs=SLABS, one_slab_ms=fms["sharded_1"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

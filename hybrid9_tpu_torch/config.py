@@ -1,8 +1,9 @@
 """Run configuration for the PyTorch port of HYBRID9.
 
 A numpy-only copy of the parts of ``hybrid9_tpu/config.py`` that the
-reference-scope day loop reads: the canonical vertical grid
-(``CANONICAL_ZI_MM``, ``LayerGrid``) and ``Config``.  The TPU knobs
+day loop and ``run.Simulation`` read: the canonical vertical grid
+(``CANONICAL_ZI_MM``, ``LayerGrid``) and ``Config`` with the flagship
+physics switches at the JAX package's defaults.  The TPU knobs
 ``use_pallas``, ``pallas_block`` and ``pallas_interpret`` become one
 ``use_kernel`` switch; donation and the compilation cache have no
 counterpart here.
@@ -88,20 +89,59 @@ class LayerGrid:
 class Config:
     """Declarative run configuration.
 
-    The fields the reference-scope day loop reads, with the JAX package's
-    defaults.  ``use_kernel`` selects the hand-written CUDA day kernel:
-    None takes it exactly when the tensors are on a CUDA device, True
-    demands it (and raises on CPU tensors), False takes the plain PyTorch
-    twin everywhere.
+    The fields the day loop and ``run.Simulation`` read, with the JAX
+    package's defaults.  ``use_kernel`` selects the hand-written CUDA day
+    kernel: None takes it exactly when the tensors are on a CUDA device,
+    True demands it (and raises on CPU tensors), False takes the plain
+    PyTorch twin everywhere.  A switch whose code is not ported yet
+    (two-layer snow, the Muskingum and packed routers, lateral
+    groundwater, ``vegetation=False``, a network or soil file) is kept
+    with its default and raises ``NotImplementedError`` where it is read.
     """
 
     nisurf: int = c.NISURF_DEFAULT    # Surface substeps per day.
+    resolution_deg: float = 0.5       # Lon/lat cell size (0.5 or 0.25).
     zi_mm: Tuple[float, ...] = CANONICAL_ZI_MM
+    soil_source: str = "synthetic"    # "synthetic" | "netcdf" | "raw".
     dtype: str = "float32"            # Working dtype for the physics.
+    cell_block: int = 1024            # Pad n_land to a multiple of this.
     use_kernel: Optional[bool] = None  # CUDA day kernel; None = on CUDA.
     zd09_every: int = 8               # Refresh the ZD09 equilibrium and
                                       # specific-yield profiles every N
                                       # substeps (1 = exact reference).
+
+    # --- Lateral flow ------------------------------------------------------
+    lateral_routing: bool = True      # Route runoff through the D8 net
+                                      # (physics/routing.py).
+    routing_scheme: str = "kinematic"  # "kinematic" (sub-daily wave at
+                                      # physical celerity), "linear" or
+                                      # "muskingum".
+    routing_form: str = "auto"        # "auto": "grid" (dense [ny, nx]
+                                      # roll stencil) for the sub-daily
+                                      # schemes, "packed" for linear.
+    routing_network_path: Optional[str] = None  # None = synthetic DEM.
+    routing_substeps: int = 8         # Sub-daily transfer steps per day.
+    routing_celerity: float = 0.8     # Kinematic ref celerity c0 (m/s).
+    lateral_groundwater: bool = False  # Aquifer exchange between cells.
+
+    # --- Snow, frozen soil, carbon, vegetation -----------------------------
+    snow: bool = True                 # Daily snowpack (physics/snow.py):
+                                      # rain/snow partition + degree-day
+                                      # melt feeding the hydrology.
+    snow_scheme: str = "degree-day"   # "degree-day" or "twolayer".
+    snow_ddf: float = 3.0             # Degree-day melt factor (mm/K/day).
+    snow_albedo: bool = True          # Snow-albedo radiative feedback
+                                      # (step.snow_absorptivity).
+    snow_alpha: float = 0.70          # Snow shortwave albedo (-).
+    snow_masking_swe: float = 10.0    # SWE at 50% snow cover (mm).
+    frozen_soil: bool = True          # Frozen-ground hydraulic impedance.
+    soil_ice: bool = True             # Prognostic soil-ice store: daily
+                                      # explicit phase change and
+                                      # impedance from the ice fraction.
+                                      # False = temperature-ramp proxy.
+    carbon: bool = True               # Soil-carbon cascade (physics/
+                                      # carbon.py); needs vegetation.
+    vegetation: bool = True           # Daily GROW dynamics.
 
     def layer_grid(self) -> LayerGrid:
         return LayerGrid.from_interfaces(self.zi_mm)
@@ -110,3 +150,11 @@ class Config:
     def dt(self) -> float:
         """Substep length in seconds (reference: INIT.f90:214)."""
         return c.SDAY / float(self.nisurf)
+
+    @property
+    def nx(self) -> int:
+        return int(round(360.0 / self.resolution_deg))
+
+    @property
+    def ny(self) -> int:
+        return int(round(180.0 / self.resolution_deg))

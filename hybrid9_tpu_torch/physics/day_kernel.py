@@ -6,7 +6,9 @@ here ``csrc/day_kernel.cu`` runs them with one CUDA thread per cell and
 the column in registers, and ``hydrology_day_plain`` is the same loop in
 plain torch (the port of ``step._xla_day_substeps``).  ``hydrology_day``
 dispatches: CUDA tensors go to the kernel, CPU tensors to the twin, with
-no fallback between them.
+no fallback between them.  ``hydrology_day_sharded`` is the port of
+``pallas_hydrology_day_sharded``: it cuts the cell axis into one slab
+per entry of a device list and runs the same day on each slab's device.
 
 Reference: the NISURF loop at SOURCE/HYBRID9.f90:193-211.
 """
@@ -14,7 +16,7 @@ Reference: the NISURF loop at SOURCE/HYBRID9.f90:193-211.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,16 +44,19 @@ DayResult = Tuple[SoilState, Dict[str, torch.Tensor]]
 def hydrology_day_plain(soil: SoilState, veg: VegState, params: SoilParams,
                         forcing: Forcing, geom: Geometry, dt: float,
                         nisurf: int, imp: Optional[torch.Tensor] = None,
-                        zd09_every: int = 1) -> DayResult:
+                        zd09_every: int = 1,
+                        sw_abs: Optional[torch.Tensor] = None) -> DayResult:
     """``nisurf`` hydrology substeps in plain torch.
 
     With ``zd09_every > 1`` the ZD09 and specific-yield profiles are
     refreshed when ``it % zd09_every == 0`` (from ``it = 0``; the counter
-    restarts each day), as in the JAX package.  Returns the new
+    restarts each day), as in the JAX package.  ``imp`` is the optional
+    ``[n, nl]`` frozen-soil impedance and ``sw_abs`` the optional ``[n]``
+    shortwave absorptivity (0.92 without it).  Returns the new
     SoilState and the daily sums ``evap_day``, ``evap_grnd_day``,
     ``rnf_day`` (mm) and ``max_abs_residual`` (mm).
     """
-    fd = derive_forcing(forcing)
+    fd = derive_forcing(forcing, sw_abs)
     et_ctx = daily_et_context(fd, veg.lai)
     h, smp = unstack(soil.h2osoi_liq), unstack(soil.smp)
     zwt, wa = soil.zwt, soil.wa
@@ -81,6 +86,56 @@ def hydrology_day_plain(soil: SoilState, veg: VegState, params: SoilParams,
                           rnf_day=rnf, max_abs_residual=max_res)
 
 
+def day_operations(nl: int, nisurf: int, zd09_every: int, with_imp: bool,
+                   jwt):
+    """``(arithmetic, transcendental)`` operations of one cell-day of
+    ``csrc/day_kernel.cu``, counted from its source along the path a
+    thread takes: every add, subtract, multiply and divide once, every
+    ``pow``/``exp`` once; compares, selects, min/max, negations and loads
+    are left out, and so is the side of a branch the thread does not keep.
+    ``jwt`` is the cell's number of layer interfaces above its water table
+    at the start of the day (``nl``: table below the column), an int or an
+    integer tensor.  The data-dependent walks (drainage, baseflow) count
+    their least, one layer; the watmin borrowing counts nothing.
+
+    By section of the kernel, with ``L = nl``:
+
+    - once a day, ``daily_et_context``: 56 and 4;
+    - per substep, common to all cells: ``92 L + 119`` and ``2 L + 2``:
+      theta and the column sum ``2 L + 2``; saturated fraction 3 (1 exp);
+      ``dual_source_et`` ``5 L + 114``; infiltration 7; conductivities and
+      potentials ``20 L`` (2 pow a layer); tridiagonal rows
+      ``31 (L - 2) + 32``; the refined Thomas solve on ``L + 1`` unknowns
+      ``23 L + 5``; the water update ``2 L``; drainage and baseflow heads 5
+      (1 exp); bucket cascade ``3 L``; bottom-layer search ``5 L - 2``;
+      residual and daily sums ``L + 15``;
+    - the impedance operand: ``L + 1`` multiplies per substep;
+    - table below the column: aquifer potential, aquifer row, recharge,
+      drainage and baseflow, 60 and 3 per substep; table in the column:
+      33 and 1;
+    - per refresh of the ZD09 and specific-yield profiles (every substep
+      at ``zd09_every=1``, else every ``zd09_every`` substeps from the
+      first): ``1 + 5 L`` and ``L`` for the yields, and per layer of the
+      equilibrium profile 17 and 3 above the table, 21 and 2 around it,
+      4 and 1 below it;
+    - at ``zd09_every=1`` baseflow takes a fresh bottom yield: 5 and 1 per
+      substep.
+    """
+    below = (jwt == nl) * 1
+    inside = 1 - below
+    arith = 92 * nl + 119 + int(with_imp) * (nl + 1) + 60 * below \
+        + 33 * inside
+    trans = 2 * nl + 2 + 3 * below + inside
+    saturated = inside * (nl - 1 - jwt)
+    refresh_arith = 1 + 5 * nl + 17 * jwt + 21 * inside + 4 * saturated
+    refresh_trans = nl + 3 * jwt + 2 * inside + saturated
+    refreshes = -(-nisurf // zd09_every)
+    if zd09_every == 1:
+        arith, trans = arith + 5, trans + 1
+    return (56 + nisurf * arith + refreshes * refresh_arith,
+            4 + nisurf * trans + refreshes * refresh_trans)
+
+
 def _check(x: torch.Tensor, name: str, shape, dtype, device) -> None:
     if x.shape != shape or x.dtype != dtype or x.device != device:
         raise ValueError(
@@ -91,7 +146,8 @@ def _check(x: torch.Tensor, name: str, shape, dtype, device) -> None:
 def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
                        forcing: Forcing, geom: Geometry, dt: float,
                        nisurf: int, imp: Optional[torch.Tensor] = None,
-                       zd09_every: int = 1) -> DayResult:
+                       zd09_every: int = 1,
+                       sw_abs: Optional[torch.Tensor] = None) -> DayResult:
     """The same day as :func:`hydrology_day_plain`, as one launch of the
     CUDA day kernel (``csrc/day_kernel.cu``) on the current stream.
 
@@ -114,7 +170,9 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
     if (len(geom.zi), len(geom.dz_soil), len(geom.zc_soil)) != \
             (nl + 2, nl, nl):
         raise ValueError(f"day kernel: geometry does not have nl={nl}")
-    fd = derive_forcing(forcing)
+    if sw_abs is not None:
+        _check(sw_abs, "sw_abs", (n,), dtype, device)
+    fd = derive_forcing(forcing, sw_abs)
 
     layered = dict(h2osoi_liq=h, smp=soil.smp, rootr=veg.rootr,
                    theta_s=params.theta_s, hksat=params.hksat,
@@ -166,16 +224,106 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
 def hydrology_day(soil: SoilState, veg: VegState, params: SoilParams,
                   forcing: Forcing, geom: Geometry, dt: float, nisurf: int,
                   imp: Optional[torch.Tensor] = None, zd09_every: int = 1,
-                  use_kernel: Optional[bool] = None) -> DayResult:
+                  use_kernel: Optional[bool] = None,
+                  sw_abs: Optional[torch.Tensor] = None) -> DayResult:
     """One hydrology day: the CUDA kernel for CUDA tensors, the plain
     twin for CPU tensors.  ``use_kernel=True`` demands the kernel and
     raises on CPU tensors; ``use_kernel=False`` takes the twin."""
+    day = _day_function(soil, use_kernel)
+    return day(soil, veg, params, forcing, geom, dt, nisurf, imp=imp,
+               zd09_every=zd09_every, sw_abs=sw_abs)
+
+
+def _day_function(soil: SoilState, use_kernel: Optional[bool]):
+    """The kernel wrapper or the plain twin, by ``use_kernel`` and the
+    device of ``soil``."""
     on_cuda = soil.h2osoi_liq.is_cuda
     if use_kernel is None:
         use_kernel = on_cuda
     if use_kernel and not on_cuda:
         raise ValueError("use_kernel=True needs CUDA tensors; the day "
                          "kernel has no CPU form")
-    day = hydrology_day_cuda if use_kernel else hydrology_day_plain
-    return day(soil, veg, params, forcing, geom, dt, nisurf, imp=imp,
-               zd09_every=zd09_every)
+    return hydrology_day_cuda if use_kernel else hydrology_day_plain
+
+
+def slab_bounds(n: int, k: int) -> list:
+    """``k`` contiguous ``(lo, hi)`` slabs of a cell axis of length ``n``:
+    every slab gets ``n // k`` cells and the last ``n % k`` slabs one
+    more."""
+    if k < 1 or n < k:
+        raise ValueError(f"cannot cut {n} cells into {k} slabs")
+    base, extra = divmod(n, k)
+    edges = [i * base + max(0, i - (k - extra)) for i in range(k + 1)]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def hydrology_day_sharded(soil: SoilState, veg: VegState,
+                          params: SoilParams, forcing: Forcing,
+                          geom: Geometry, dt: float, nisurf: int,
+                          devices: Sequence,
+                          imp: Optional[torch.Tensor] = None,
+                          zd09_every: int = 1,
+                          sw_abs: Optional[torch.Tensor] = None,
+                          use_kernel: Optional[bool] = None) -> DayResult:
+    """One hydrology day with the cell axis cut over a list of devices.
+
+    ``devices`` stands where the JAX package's 1-D mesh stood: the cell
+    axis is cut into ``len(devices)`` contiguous slabs
+    (:func:`slab_bounds`; the kernel masks a ragged tail, so the cell
+    count need not divide), every operand is split on its leading axis,
+    and slab ``i``'s day is one launch of the CUDA day kernel on
+    ``devices[i]`` (the plain twin with ``use_kernel=False`` or on CPU
+    tensors; which of the two is settled once, from the device of the
+    inputs, and a device of another type than theirs raises, so no slab
+    is moved to the host behind the caller).  The physics is cell-local and a thread owns one cell, so
+    the result is bitwise that of the unsharded day.  There is no
+    collective and no host synchronisation between the slab launches.  A
+    device may appear more than once, which lets one card exercise the
+    slabbing.  A slab whose device is that of the inputs is a view of
+    them; any other slab is copied to its device and its result copied
+    back, so the whole result lies on the device of the inputs.  One
+    process drives all the devices it is given; the ranks of a
+    multi-process run each call this with their local devices on their
+    own cells.
+
+    Replaces the TPU path ``pallas_hydrology_day_sharded`` (a
+    ``shard_map`` of the Pallas day kernel over a 1-D mesh).  What bounds
+    it is what bounds the kernel, arithmetic at low occupancy, plus what
+    slabbing adds: the forcing and layout preparation is paid per slab,
+    and on ONE card the slabs run one after another, each filling the
+    card less than the whole grid does.  Four slabs of 69,632 cells on
+    one NVIDIA H100 80GB HBM3 (700 W) take 4.26-4.37 ms against
+    2.61-2.65 ms unsharded and 2.63-2.68 ms for one slab
+    (``chip_smoke.py``); slabs on different cards can overlap, since
+    nothing here waits for a launch.
+    """
+    devices = [torch.device(d) for d in devices]
+    home = soil.h2osoi_liq.device
+    strangers = [str(d) for d in devices if d.type != home.type]
+    if strangers:
+        raise ValueError(f"sharded day: inputs on {home} cannot be cut over "
+                         f"{strangers}; every device must be a {home.type} "
+                         f"device")
+    day = _day_function(soil, use_kernel)
+    n = soil.h2osoi_liq.shape[0]
+    results = []
+    for dev, (lo, hi) in zip(devices, slab_bounds(n, len(devices))):
+        def cut(x):
+            return x[lo:hi].to(dev)
+
+        results.append(day(
+            soil.map(cut), veg.map(cut), params.map(cut), forcing.map(cut),
+            geom, dt, nisurf, imp=None if imp is None else cut(imp),
+            zd09_every=zd09_every,
+            sw_abs=None if sw_abs is None else cut(sw_abs)))
+
+    def whole(parts):
+        return torch.cat([x.to(home) for x in parts])
+
+    soils = [r[0] for r in results]
+    new_soil = SoilState(**{
+        f: whole([getattr(s, f) for s in soils])
+        for f in ("h2osoi_liq", "zwt", "wa", "smp")},
+        h2osoi_liq_ma=soil.h2osoi_liq_ma)
+    diags = {k: whole([r[1][k] for r in results]) for k in results[0][1]}
+    return new_soil, diags

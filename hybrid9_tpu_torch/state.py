@@ -27,10 +27,12 @@ class _Tensors:
     """Field-wise helpers shared by the state dataclasses."""
 
     @classmethod
-    def from_numpy(cls, arrays: Mapping, dtype: torch.dtype,
-                   device=None):
-        """Build from numpy arrays keyed by field name; a nested state
-        (e.g. ``ModelState.soil``) takes a nested mapping."""
+    def from_numpy(cls, arrays: Mapping, dtype: torch.dtype, device):
+        """Build on ``device`` from numpy arrays keyed by field name; a
+        nested state (e.g. ``ModelState.soil``) takes a nested mapping.
+        This is the one route by which the JAX package's ``ModelState``,
+        ``SoilParams``, ``Forcing`` and ``AnnualAccumulators`` become the
+        port's (flattened to numpy by field name)."""
         hints = typing.get_type_hints(cls)
         kw = {}
         for f in dataclasses.fields(cls):
@@ -105,7 +107,8 @@ class VegState(_Tensors):
 
 @dataclasses.dataclass
 class SnowpackState(_Tensors):
-    """Two-layer snowpack prognostics; zeros while snow is not ported."""
+    """Two-layer snowpack prognostics; untouched by the degree-day
+    scheme (the two-layer scheme is not ported yet)."""
 
     swe_surf: torch.Tensor   # [n] Surface-layer SWE (ice)          (mm)
     swe_base: torch.Tensor   # [n] Base-layer SWE (ice)             (mm)
@@ -114,8 +117,7 @@ class SnowpackState(_Tensors):
     t_base: torch.Tensor     # [n] Base-layer temperature     (K, <= TF)
 
     @classmethod
-    def zeros(cls, n: int, dtype=torch.float32,
-              device=None) -> "SnowpackState":
+    def zeros(cls, n: int, dtype: torch.dtype, device) -> "SnowpackState":
         def z():
             return torch.zeros((n,), dtype=dtype, device=device)
 
@@ -135,8 +137,7 @@ class CarbonState(_Tensors):
     c_soil_slow: torch.Tensor  # [n] Slow SOM (~100 yr turnover)
 
     @classmethod
-    def initial(cls, n: int, dtype=torch.float32,
-                device=None) -> "CarbonState":
+    def initial(cls, n: int, dtype: torch.dtype, device) -> "CarbonState":
         def full(v):
             return torch.full((n,), v, dtype=dtype, device=device)
 
@@ -216,8 +217,8 @@ class AnnualAccumulators(_Tensors):
     max_abs_residual: torch.Tensor
 
     @classmethod
-    def zeros(cls, n: int, nsoil: int = c.NSOIL_LAYERS,
-              dtype=torch.float32, device=None) -> "AnnualAccumulators":
+    def zeros(cls, n: int, dtype: torch.dtype, device,
+              nsoil: int = c.NSOIL_LAYERS) -> "AnnualAccumulators":
         kw = {f.name: torch.zeros((n,), dtype=dtype, device=device)
               for f in dataclasses.fields(cls)}
         kw["theta_sum"] = torch.zeros((n, nsoil), dtype=dtype,
@@ -227,7 +228,7 @@ class AnnualAccumulators(_Tensors):
 
 
 def initial_state(params: SoilParams, dz_mm: np.ndarray, zi_mm: np.ndarray,
-                  dtype=torch.float32, device=None) -> ModelState:
+                  dtype: torch.dtype, device) -> ModelState:
     """Build the t=0 prognostic state from soil parameters (INIT.f90:
     707-811): layers at 40 % of saturation, the water table 5 m below the
     bottom soil interface, 4000 mm in the aquifer, one 1 g plant with an

@@ -18,6 +18,11 @@ from hybrid9_tpu.data.synthetic import (synthetic_forcing_day,
                                         synthetic_soil_params)
 from hybrid9_tpu.physics import constants as c
 from hybrid9_tpu_torch import state as t_state
+from hybrid9_tpu_torch.weights import from_reference
+
+# The port's CPU tests run small tensors beside other test processes: one
+# intra-op thread per process keeps them from contending for the cores.
+torch.set_num_threads(1)
 
 N = 256          # cells of the day-level parity cases
 DT = 1800.0
@@ -88,8 +93,10 @@ def columns(n: int, nl: int, seed: int) -> dict:
 
 
 def tree_np(x):
-    """A state dataclass (or dict) of either package as nested numpy
-    dicts."""
+    """A state dataclass (or dict, or tuple of them) of either package as
+    nested numpy dicts."""
+    if isinstance(x, tuple):
+        return {str(i): tree_np(v) for i, v in enumerate(x)}
     if isinstance(x, dict):
         return {k: tree_np(v) for k, v in x.items()}
     if dataclasses.is_dataclass(x):
@@ -98,6 +105,14 @@ def tree_np(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def to_port(obj, dtype: str = "float64"):
+    """An object of the JAX package (a state dataclass, ``SnowParams``,
+    ``GridRouting``, ...) as the port's, on the CPU in ``dtype``, carried
+    across as numpy by ``hybrid9_tpu_torch.weights.from_reference``."""
+    return from_reference(type(obj).__name__, tree_np(obj),
+                          getattr(torch, dtype), "cpu")
 
 
 def jnp_list(a: np.ndarray, dtype=jnp.float64):
@@ -131,16 +146,16 @@ def assert_tree_close(got, want, rtol, atol, what=""):
                                err_msg=what)
 
 
-def day_case(nl, dtype, varied, seed=0):
-    """Identical (JAX, torch) inputs of a one-day case, and the geometry
-    tuples.  ``varied=False``: the initial state of ``initial_state``
+def day_case(nl, dtype, varied, seed=0, n=N):
+    """Identical (JAX, torch) inputs of a one-day case of ``n`` cells, and
+    the geometry tuples.  ``varied=False``: the state of ``initial_state``
     (built by JAX, handed over through numpy) with water tables below the
     column; ``varied=True``: the :func:`columns` states across regimes.
     """
     grid = grid_for(nl)
     jd = jnp.float64 if dtype == "float64" else jnp.float32
     td = getattr(torch, dtype)
-    col = columns(N, nl, seed)
+    col = columns(n, nl, seed)
     params_j = j_state.SoilParams(**{k: jnp.asarray(v, jd)
                                      for k, v in col["params"].items()})
     state_j = j_state.initial_state(params_j, grid.dz, grid.zi, jd)
@@ -159,10 +174,11 @@ def day_case(nl, dtype, varied, seed=0):
              forcing=j_state.Forcing(**{k: jnp.asarray(v, jd)
                                         for k, v in col["forcing"].items()}),
              imp=jnp.asarray(col["imp"], jd))
-    t = dict(soil=t_state.SoilState.from_numpy(soil, td),
-             veg=t_state.VegState.from_numpy(veg, td),
-             params=t_state.SoilParams.from_numpy(tree_np(params_j), td),
-             forcing=t_state.Forcing.from_numpy(col["forcing"], td),
+    t = dict(soil=t_state.SoilState.from_numpy(soil, td, "cpu"),
+             veg=t_state.VegState.from_numpy(veg, td, "cpu"),
+             params=t_state.SoilParams.from_numpy(tree_np(params_j), td,
+                                                  "cpu"),
+             forcing=t_state.Forcing.from_numpy(col["forcing"], td, "cpu"),
              imp=torch.tensor(col["imp"], dtype=td))
     return j, t, geom_tuples(grid)
 

@@ -37,7 +37,7 @@ def test_plain_day_matches_pallas_interpret():
     soil_j, diags_j = pallas_hydrology_day(
         state.soil, state.veg, params, forcing, geom, cfg.dt, cfg.nisurf,
         block=N, interpret=True, zd09_every=8)
-    case = build_reference_case(N, "float32")
+    case = build_reference_case(N, "float32", "cpu")
     soil_t, diags_t = day_kernel.hydrology_day_plain(
         case.state.soil, case.state.veg, case.params, case.forcing,
         case.geom, case.cfg.dt, case.cfg.nisurf, zd09_every=8)
@@ -52,7 +52,7 @@ def test_cached_profile_aquifer_entry_is_fresh():
     soil_water_update must recompute that entry when the table has moved
     below the column."""
     n, nl = 64, 8
-    case = build_reference_case(n, "float64")
+    case = build_reference_case(n, "float64", "cpu")
     params, geom = case.params, case.geom
     dz = geom.dz_soil
 
@@ -86,7 +86,7 @@ def test_cached_profile_aquifer_entry_is_fresh():
 
 
 def test_dispatch_sends_cpu_tensors_to_the_twin():
-    case = build_reference_case(32, "float64")
+    case = build_reference_case(32, "float64", "cpu")
     args = (case.state.soil, case.state.veg, case.params, case.forcing,
             case.geom, case.cfg.dt, case.cfg.nisurf)
     before = day_kernel.launches
@@ -98,7 +98,7 @@ def test_dispatch_sends_cpu_tensors_to_the_twin():
 
 
 def test_use_kernel_on_cpu_tensors_raises():
-    case = build_reference_case(32, "float32")
+    case = build_reference_case(32, "float32", "cpu")
     args = (case.state.soil, case.state.veg, case.params, case.forcing,
             case.geom, case.cfg.dt, case.cfg.nisurf)
     with pytest.raises(ValueError, match="CUDA"):

@@ -29,7 +29,7 @@ def test_knife_edge_water_table_survives_zd09_interval():
     sits exactly on the column-bottom interface stays finite and
     conserving for 30 days at zd09_every=8 in float32."""
     n, nl = 64, 8
-    case = build_reference_case(n, "float32")
+    case = build_reference_case(n, "float32", "cpu")
     state, params, geom, cfg = case.state, case.params, case.geom, case.cfg
     dz = torch.tensor(geom.dz_soil, dtype=torch.float32)
     state = state.replace(soil=state.soil.replace(

@@ -32,19 +32,20 @@ def test_plain_day_matches_golden(tag):
         theta_s=d["theta_s"][None], hksat=d["hksat"][None],
         lambda_=d["lambda_"][None], bsw=d["bsw"][None],
         psi_s=d["psi_s"][None], theta_m=np.zeros((1, nl)),
-        fmax=[d["fmax"]]), f64)
+        fmax=[d["fmax"]]), f64, "cpu")
     soil = t_state.SoilState.from_numpy(dict(
         h2osoi_liq=d["h0"][None], zwt=[2.0], wa=[4000.0],
-        smp=d["smp0"][None], h2osoi_liq_ma=np.zeros((1, nl))), f64)
+        smp=d["smp0"][None], h2osoi_liq_ma=np.zeros((1, nl))), f64, "cpu")
     veg = t_state.VegState.from_numpy(dict(
         plant_mass=[10.0], plant_foliage_mass=[1.5 / 0.023],
         plant_length=[100.0], rdepth=[30.0], lai=[1.5], lai_litter=[0.2],
         rootr=d["rootr"][None], c_labile=[0.0], n_labile=[0.0],
-        p_labile=[0.0]), f64)
+        p_labile=[0.0]), f64, "cpu")
     geom = Geometry.from_layer_grid(g)
     for day in range(int(d["n_days"])):
         f = t_state.Forcing.from_numpy(
-            synthetic_forcing_day(1, day + 1, seed=int(d["seed"])), f64)
+            synthetic_forcing_day(1, day + 1, seed=int(d["seed"])), f64,
+            "cpu")
         soil, _ = hydrology_day_plain(soil, veg, params, f, geom, 1800.0,
                                       48)
         veg, _, _ = grow_daily(veg, soil.smp, f.tas, geom.zi)

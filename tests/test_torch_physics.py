@@ -61,7 +61,7 @@ def _inputs(nl=8, seed=0):
              **{k: torch.as_tensor(col[k], dtype=T64)
                 for k in ("zwt", "wa", "lai", "lai_litter")},
              fmax=torch.as_tensor(p["fmax"], dtype=T64),
-             forcing=t_state.Forcing.from_numpy(col["forcing"], T64))
+             forcing=t_state.Forcing.from_numpy(col["forcing"], T64, "cpu"))
     for d in (j, t):
         d["theta"] = [d["h"][i] / dz[i] for i in range(nl)]
     return col, (zi, dz, zc), j, t
@@ -238,18 +238,18 @@ def test_hydrology_substep_on_states():
                   smp=col["smp"], h2osoi_liq_ma=np.zeros((N, nl)))
     soil_j = j_state.SoilState(**{k: jnp.asarray(v, F64)
                                   for k, v in arrays.items()})
-    soil_t = t_state.SoilState.from_numpy(arrays, T64)
+    soil_t = t_state.SoilState.from_numpy(arrays, T64, "cpu")
     p = dict(col["params"])
     params_j = j_state.SoilParams(**{k: jnp.asarray(v, F64)
                                      for k, v in p.items()})
-    params_t = t_state.SoilParams.from_numpy(p, T64)
+    params_t = t_state.SoilParams.from_numpy(p, T64, "cpu")
     veg = dict(plant_mass=col["plant_mass"], plant_foliage_mass=col["lai"],
                plant_length=col["lai"], rdepth=col["lai"], lai=col["lai"],
                lai_litter=col["lai_litter"], rootr=col["rootr"],
                c_labile=col["lai"], n_labile=col["lai"], p_labile=col["lai"])
     veg_j = j_state.VegState(**{k: jnp.asarray(v, F64)
                                 for k, v in veg.items()})
-    veg_t = t_state.VegState.from_numpy(veg, T64)
+    veg_t = t_state.VegState.from_numpy(veg, T64, "cpu")
     geom = (zi, dz, zc)
     s_j, fx_j = j_hy.hydrology_substep(
         soil_j, veg_j, params_j, j_hy.derive_forcing(j["forcing"]),
@@ -274,7 +274,7 @@ def test_grow_daily(vegetation_regime):
                n_labile=np.zeros(N), p_labile=np.zeros(N))
     veg_j = j_state.VegState(**{k: jnp.asarray(v, F64)
                                 for k, v in veg.items()})
-    veg_t = t_state.VegState.from_numpy(veg, T64)
+    veg_t = t_state.VegState.from_numpy(veg, T64, "cpu")
     v_j, npp_j, lf_j, fx_j = j_grow.grow_daily(
         veg_j, jnp.asarray(col["smp"]), jnp.asarray(tas), zi,
         return_fluxes=True)
