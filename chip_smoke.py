@@ -9,8 +9,9 @@ non-zero:
 1. device: a CUDA card is required (there is no CPU path); prints its
    name and, as ``nvidia-smi`` gives them, its name and power limit;
 2. build: compiles ``hybrid9_tpu_torch/csrc/day_kernel.cu`` with nvcc for
-   sm_90a and prints the build seconds and the registers and spills of
-   each kernel instance;
+   sm_90a and prints the build seconds, the registers and spills of each
+   kernel instance, and what the card holds of each (resident blocks an
+   SM, shared memory a block);
 3. kernel vs plain twin on the card: n = 4,096 cells, one day,
    zd09_every in {1, 8}, with and without the frozen-soil impedance,
    nl in {8, 20}, every output of the day: in float32 at the tolerances
@@ -52,7 +53,10 @@ non-zero:
 8. timing at 69,632 cells: the flagship ``day_step``, the kernel day with
    and without the impedance operand (on the winter state and on the
    first day's state), the sharded day with 1 and 4 slabs and their plain
-   versions;
+   versions; then the kernel day on the first 33,792 to 69,632 cells of
+   the first day's state (one thread block more must not cost a round of
+   blocks more) and on 282,624 cells, the 0.25-degree grid's count, made
+   by tiling that state;
 9. the bound of the day on this card: the bytes the day must move over
    the memory rate against its operations over the float32 rate, the
    operations counted from the kernel's source along the path each of
@@ -91,6 +95,7 @@ from hybrid9_tpu_torch.step import (annual_means, block_step, day_step,
 
 N_CELLS = 66_560          # reference scope: padded global 0.5-degree land
 N_FLAGSHIP = 69_632       # Config() defaults: the 0.5-degree land grid
+N_QUARTER_DEGREE = 282_624  # the 0.25-degree land grid's cell count
 N_CHECK = 4_096           # cells for the kernel-vs-twin cases
 REFERENCE_DAYS = 10
 FLAGSHIP_DAYS = 30
@@ -336,7 +341,8 @@ def day_bound(day_args, imp, zd09_every):
     n, nl = soil.h2osoi_liq.shape
     item = soil.h2osoi_liq.element_size()
     layered_in = 7 + (imp is not None)      # h2osoi, smp, rootr, 4 params
-    flat_in = 5 + len(day_kernel._FD_KEYS)  # zwt, wa, lai, litter, fmax, fd
+    # zwt, wa, lai, litter, fmax, the raw forcing and the absorptivity
+    flat_in = 5 + len(day_kernel._FORCING_KEYS) + 1
     values = n * (layered_in * nl + flat_in + 2 * nl + 6)
     interfaces_m = torch.tensor(geom.zi[1:nl + 1], dtype=soil.zwt.dtype,
                                 device=soil.zwt.device) / 1000.0
@@ -459,7 +465,15 @@ def main() -> None:
     print(f"build: nvcc {info.get('seconds', 0.0):.1f} s, load "
           f"{load_s:.1f} s ({info.get('path', 'library already built')})")
     ptxas = _ptxas_summary(info.get("log", ""))
+    lib = kernels.day_kernel_lib()
     for p in ptxas:
+        sms, blocks, threads, nbytes = day_kernel.instance_residency(
+            lib, torch.float32 if p["dtype"] == "f32" else torch.float64,
+            p["nl"], p["imp"])
+        p.update(sms=sms, resident_blocks_per_sm=blocks,
+                 threads_per_block=threads, shared_bytes_per_block=nbytes,
+                 rounds_at_flagship_cells=day_kernel.rounds(
+                     N_FLAGSHIP, sms, blocks, threads))
         print("ptxas: " + json.dumps(p))
 
     # 3. Kernel against plain twin.
@@ -754,6 +768,33 @@ def main() -> None:
            flag_what)
     print(f"flagship day_step wall {fstep_wall_ms:.3f} ms; timing passes "
           f"(event ms, wall ms): " + json.dumps(ftimes))
+
+    # The kernel day by cell count (the card holds 71,808 cells of the
+    # main-path instance at once, so no count up to the flagship's pays a
+    # second round of blocks), and the next grid's count.
+    def first_cells(m):
+        def cut(x):
+            return x[:m]
+        return lambda: day_kernel.hydrology_day_cuda(
+            *[a.map(cut) for a in first_args[:4]], *first_args[4:],
+            **dict(first_kw, imp=first_kw["imp"][:m],
+                   sw_abs=first_kw["sw_abs"][:m]))[0].h2osoi_liq
+
+    by_count = {m: _time_cuda(first_cells(m), 20)[0]
+                for m in (33_792, 66_560, 67_584, 67_712, n)}
+
+    def tiled(x):
+        return torch.cat([x] * (N_QUARTER_DEGREE // n)
+                         + [x[:N_QUARTER_DEGREE % n]])
+
+    big_args = tuple(a.map(tiled) for a in first_args[:4]) + first_args[4:]
+    big_kw = dict(first_kw, imp=tiled(first_kw["imp"]),
+                  sw_abs=tiled(first_kw["sw_abs"]))
+    by_count[N_QUARTER_DEGREE] = _time_cuda(
+        lambda: day_kernel.hydrology_day_cuda(
+            *big_args, **big_kw)[0].h2osoi_liq, 10)[0]
+    print("kernel day with imp by cell count, first day's state, ms "
+          f"({smi}): " + json.dumps(by_count))
 
     # 9. The bound of the flagship day on this card.
     bound = day_bound(winter_args, imp, fcfg.zd09_every)

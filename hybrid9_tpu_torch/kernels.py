@@ -23,6 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 _SRC_DIR = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
+DAY_KERNEL_SOURCE = _SRC_DIR / "day_kernel.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -31,6 +32,8 @@ _day_lib = None
 #: ``{"seconds": float, "log": str, "path": str}``; empty if the library
 #: was already on disk.
 build_info: dict = {}
+#: The same record for every library built in this process, by its path.
+build_logs: dict = {}
 
 
 def _nvcc() -> str:
@@ -45,7 +48,10 @@ def _nvcc() -> str:
     return path
 
 
-def _build(name: str, sources) -> Path:
+def build(name: str, sources) -> Path:
+    """Compile ``sources`` with ``NVCC_FLAGS`` into ``_build/``; returns
+    the library's path and leaves the compiler's output in ``build_info``
+    and ``build_logs``."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
@@ -65,8 +71,9 @@ def _build(name: str, sources) -> Path:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib)
-    build_info.update(seconds=seconds, log=proc.stdout + proc.stderr,
-                      path=str(lib))
+    build_logs[str(lib)] = dict(seconds=seconds,
+                                log=proc.stdout + proc.stderr, path=str(lib))
+    build_info.update(build_logs[str(lib)])
     return lib
 
 
@@ -75,13 +82,24 @@ def day_kernel_lib() -> ctypes.CDLL:
     use."""
     global _day_lib
     if _day_lib is None:
-        lib = ctypes.CDLL(str(_build("h9day",
-                                     [_SRC_DIR / "day_kernel.cu"])))
-        fn = lib.h9_hydrology_day
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _day_lib = lib
+        _day_lib = bind_day_kernel(build("h9day", [DAY_KERNEL_SOURCE]))
     return _day_lib
+
+
+def bind_day_kernel(path) -> ctypes.CDLL:
+    """Load a build of ``csrc/day_kernel.cu`` and declare its two C
+    entries."""
+    lib = ctypes.CDLL(str(path))
+    fn = lib.h9_hydrology_day
+    # dtype_bytes, nl, with_imp, ins, strides, outs, n, grid, nisurf,
+    # zd09_every, dt, geom, stream
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.h9_day_residency
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib

@@ -2,11 +2,23 @@
 
 Port of ``hybrid9_tpu/physics/pallas_day.py``.  The TPU ran the day's
 ``nisurf`` substeps as one Pallas kernel over VMEM-resident cell blocks;
-here ``csrc/day_kernel.cu`` runs them with one CUDA thread per cell and
-the column in registers, and ``hydrology_day_plain`` is the same loop in
-plain torch (the port of ``step._xla_day_substeps``).  ``hydrology_day``
-dispatches: CUDA tensors go to the kernel, CPU tensors to the twin, with
-no fallback between them.  ``hydrology_day_sharded`` is the port of
+here ``csrc/day_kernel.cu`` runs them with one CUDA thread per cell, and
+``hydrology_day_plain`` is the same loop in plain torch (the port of
+``step._xla_day_substeps``).  ``hydrology_day`` dispatches: CUDA tensors
+go to the kernel, CPU tensors to the twin, with no fallback between them.
+
+What bounds the kernel on an H100 is waiting on a cell's long dependent
+chain, then instruction fetch and dispatch (see the note at the head of the
+source).  Its design answers with residency and small code: blocks of
+one warp, the 0.5-degree grid's 2,176 warps resident at once (17 on each
+of 132 SMs at 96 registers a thread), the layer loops kept as loops over
+vectors in shared memory, and the state read and written ``[n, nl]`` as
+the model holds it, so that a day is one launch.  What the wrapper
+decides on the host is plain Python here and tested on the CPU: the
+grid (:func:`launch_grid`), the tensors it accepts (:func:`cell_stride`)
+and what it refuses of an instance (:func:`instance_residency`).
+
+``hydrology_day_sharded`` is the port of
 ``pallas_hydrology_day_sharded``: it cuts the cell axis into one slab
 per entry of a device list and runs the same day on each slab's device.
 
@@ -29,8 +41,6 @@ from .hydrology import Geometry, derive_forcing, substep_values
 from .layers import stack, unstack
 from .soilwater import compute_equilibrium_zq
 
-# Derived-forcing field order of the kernel's input list.
-_FD_KEYS = ("tak", "rh", "rnet", "par", "forc_rain", "lamb", "huss", "ps")
 # Layer counts and dtypes the kernel is instantiated for.
 KERNEL_NLS = (8, 20)
 KERNEL_DTYPES = (torch.float32, torch.float64)
@@ -136,11 +146,86 @@ def day_operations(nl: int, nisurf: int, zd09_every: int, with_imp: bool,
             4 + nisurf * trans + refreshes * refresh_trans)
 
 
-def _check(x: torch.Tensor, name: str, shape, dtype, device) -> None:
+SHARED_BYTES_MAX = 232_448    # dynamic shared memory one block may use
+# Raw-forcing field order of the kernel's input list.
+_FORCING_KEYS = ("tas", "rhs", "rsds", "rlds", "pr", "huss", "ps")
+
+_residency: Dict[tuple, tuple] = {}
+
+
+def launch_grid(n: int, block: int) -> int:
+    """Blocks of the day kernel's launch for ``n`` cells: a block per
+    ``block`` cells, one cell a thread, the last block's tail masked.
+    The hardware hands the blocks out as earlier ones finish, which evens
+    out cells of unequal cost (frozen columns take half as long again)."""
+    if min(n, block) < 1:
+        raise ValueError(f"launch_grid: n={n}, block={block} must both be "
+                         f">= 1")
+    return -(-n // block)
+
+
+def rounds(n: int, sms: int, blocks_per_sm: int, block: int) -> int:
+    """Rounds of resident blocks that ``n`` cells need on a card of
+    ``sms`` SMs that each hold ``blocks_per_sm`` blocks of ``block``
+    threads: 1 when the card holds the whole grid at once."""
+    if min(sms, blocks_per_sm) < 1:
+        raise ValueError(f"rounds: sms={sms}, blocks_per_sm={blocks_per_sm} "
+                         f"must both be >= 1")
+    return -(-launch_grid(n, block) // (sms * blocks_per_sm))
+
+
+def cell_stride(x: torch.Tensor, name: str, n: int, nl: Optional[int],
+                dtype, device) -> int:
+    """Elements from one cell of ``x`` to the next, for the kernel.  ``x``
+    is ``[n]`` (``nl=None``; any stride) or ``[n, nl]`` with contiguous
+    rows that start on 16-byte addresses: a contiguous tensor, or a view
+    such as ``y[lo:hi]`` of one.  Raises on anything else; nothing is
+    copied."""
+    shape = (n,) if nl is None else (n, nl)
     if x.shape != shape or x.dtype != dtype or x.device != device:
         raise ValueError(
             f"day kernel: {name} is {tuple(x.shape)} {x.dtype} on "
-            f"{x.device}; expected {tuple(shape)} {dtype} on {device}")
+            f"{x.device}; expected {shape} {dtype} on {device}")
+    stride = x.stride(0) if n > 1 else (nl or 1)
+    if not 0 <= stride < 2 ** 31:
+        raise ValueError(f"day kernel: {name} has cell stride {stride}")
+    if nl is not None:
+        if nl > 1 and x.stride(1) != 1:
+            raise ValueError(
+                f"day kernel: the rows of {name} are not contiguous "
+                f"(strides {x.stride()}); pass [n, nl] as the model holds "
+                f"it")
+        item = x.element_size()
+        if x.data_ptr() % 16 or (stride * item) % 16:
+            raise ValueError(
+                f"day kernel: the rows of {name} do not start on 16-byte "
+                f"addresses (offset {x.data_ptr() % 16}, cell stride "
+                f"{stride * item} bytes)")
+    return stride
+
+
+def instance_residency(lib, dtype, nl: int, with_imp: bool):
+    """``(sms, blocks_per_sm, block, shared bytes a block)`` of a kernel
+    instance on the current CUDA device, asked of the library once per
+    device and instance.  Raises if the library has no such instance, if
+    the device refuses it, or if it wants more shared memory than a block
+    may use."""
+    key = (id(lib), torch.cuda.current_device(), dtype, nl, with_imp)
+    if key not in _residency:
+        out = (ctypes.c_int * 4)()
+        rc = lib.h9_day_residency(dtype.itemsize, nl, int(with_imp), out)
+        if rc != 0:
+            raise RuntimeError(
+                f"day kernel: no residency for {dtype}, nl={nl}, "
+                f"imp={with_imp} on device {key[1]}: error {rc}")
+        sms, blocks_per_sm, block, nbytes = out
+        if nbytes > SHARED_BYTES_MAX:
+            raise RuntimeError(
+                f"day kernel: instance {dtype}, nl={nl}, imp={with_imp} "
+                f"uses {nbytes} bytes of shared memory a block; limit "
+                f"{SHARED_BYTES_MAX}")
+        _residency[key] = (sms, blocks_per_sm, block, nbytes)
+    return _residency[key]
 
 
 def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
@@ -148,12 +233,16 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
                        nisurf: int, imp: Optional[torch.Tensor] = None,
                        zd09_every: int = 1,
                        sw_abs: Optional[torch.Tensor] = None) -> DayResult:
-    """The same day as :func:`hydrology_day_plain`, as one launch of the
-    CUDA day kernel (``csrc/day_kernel.cu``) on the current stream.
+    """The same day as :func:`hydrology_day_plain`, as ONE launch of the
+    CUDA day kernel (``csrc/day_kernel.cu``) on the current stream, and
+    nothing else on the device: no transpose, no copy, no small kernel.
 
-    Layered fields go in and out layer-major (``[nl, n]``), so that
-    neighbouring threads touch neighbouring addresses.  Raises on
-    anything the kernel does not take.
+    The kernel takes the state as the model holds it: layered fields
+    ``[n, nl]``, contiguous or slab views ``x[lo:hi]`` (see
+    :func:`cell_stride`; anything else raises), and the raw forcing, from
+    which it forms ``derive_forcing``'s fields itself, bitwise.  The grid
+    is :func:`launch_grid`'s, for the block of the instance
+    (:func:`instance_residency`).
     """
     global launches
     h = soil.h2osoi_liq
@@ -170,52 +259,45 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
     if (len(geom.zi), len(geom.dz_soil), len(geom.zc_soil)) != \
             (nl + 2, nl, nl):
         raise ValueError(f"day kernel: geometry does not have nl={nl}")
-    if sw_abs is not None:
-        _check(sw_abs, "sw_abs", (n,), dtype, device)
-    fd = derive_forcing(forcing, sw_abs)
 
-    layered = dict(h2osoi_liq=h, smp=soil.smp, rootr=veg.rootr,
-                   theta_s=params.theta_s, hksat=params.hksat,
-                   psi_s=params.psi_s, bsw=params.bsw)
-    if imp is not None:
-        layered["imp"] = imp
-    flat = dict(zwt=soil.zwt, wa=soil.wa, lai=veg.lai,
-                lai_litter=veg.lai_litter, fmax=params.fmax,
-                **{k: fd[k] for k in _FD_KEYS})
-    for name, x in layered.items():
-        _check(x, name, (n, nl), dtype, device)
-    for name, x in flat.items():
-        _check(x, name, (n,), dtype, device)
-
-    lay = {k: x.t().contiguous() for k, x in layered.items()}
-    flt = {k: x.contiguous() for k, x in flat.items()}
-    ins = [lay["h2osoi_liq"], lay["smp"], flt["zwt"], flt["wa"],
-           lay["rootr"], flt["lai"], flt["lai_litter"], lay["theta_s"],
-           lay["hksat"], lay["psi_s"], lay["bsw"], flt["fmax"],
-           lay.get("imp")] + [flt[k] for k in _FD_KEYS]
-    outs = [torch.empty((nl, n), dtype=dtype, device=device)
+    # In the order of the kernel's I_* slots; (name, tensor, layered).
+    ins = [("h2osoi_liq", h, True), ("smp", soil.smp, True),
+           ("zwt", soil.zwt, False), ("wa", soil.wa, False),
+           ("rootr", veg.rootr, True), ("lai", veg.lai, False),
+           ("lai_litter", veg.lai_litter, False),
+           ("theta_s", params.theta_s, True), ("hksat", params.hksat, True),
+           ("psi_s", params.psi_s, True), ("bsw", params.bsw, True),
+           ("fmax", params.fmax, False), ("imp", imp, True)] + \
+          [(k, getattr(forcing, k), False) for k in _FORCING_KEYS] + \
+          [("sw_abs", sw_abs, False)]
+    strides = [0 if x is None else
+               cell_stride(x, name, n, nl if layered else None, dtype,
+                           device) for name, x, layered in ins]
+    outs = [torch.empty((n, nl), dtype=dtype, device=device)
             for _ in range(2)] + \
            [torch.empty((n,), dtype=dtype, device=device) for _ in range(6)]
     geom_host = np.asarray(geom.zi + geom.dz_soil + geom.zc_soil,
                            dtype=np.float64)
     in_ptrs = (ctypes.c_void_p * len(ins))(
-        *[None if x is None else x.data_ptr() for x in ins])
+        *[None if x is None else x.data_ptr() for _, x, _ in ins])
+    in_strides = (ctypes.c_int * len(ins))(*strides)
     out_ptrs = (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs])
 
     lib = kernels.day_kernel_lib()
     with torch.cuda.device(device):
+        _, _, block, _ = instance_residency(lib, dtype, nl, imp is not None)
+        grid = launch_grid(n, block)
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.h9_hydrology_day(
-            dtype.itemsize, nl, int(imp is not None), in_ptrs, out_ptrs,
-            n, nisurf, zd09_every, float(dt),
+            dtype.itemsize, nl, int(imp is not None), in_ptrs, in_strides,
+            out_ptrs, n, grid, nisurf, zd09_every, float(dt),
             geom_host.ctypes.data, stream)
     if rc != 0:
         raise RuntimeError(f"day kernel launch failed: CUDA error {rc}")
     launches += 1
 
-    h_t, smp_t, zwt, wa, evap, evap_grnd, rnf, max_res = outs
-    new_soil = SoilState(h2osoi_liq=h_t.t().contiguous(), zwt=zwt, wa=wa,
-                         smp=smp_t.t().contiguous(),
+    h_new, smp_new, zwt, wa, evap, evap_grnd, rnf, max_res = outs
+    new_soil = SoilState(h2osoi_liq=h_new, zwt=zwt, wa=wa, smp=smp_new,
                          h2osoi_liq_ma=soil.h2osoi_liq_ma)
     return new_soil, dict(evap_day=evap, evap_grnd_day=evap_grnd,
                           rnf_day=rnf, max_abs_residual=max_res)
@@ -275,8 +357,9 @@ def hydrology_day_sharded(soil: SoilState, veg: VegState,
     ``devices[i]`` (the plain twin with ``use_kernel=False`` or on CPU
     tensors; which of the two is settled once, from the device of the
     inputs, and a device of another type than theirs raises, so no slab
-    is moved to the host behind the caller).  The physics is cell-local and a thread owns one cell, so
-    the result is bitwise that of the unsharded day.  There is no
+    is moved to the host behind the caller).  The physics is cell-local
+    and a thread owns one cell, so the result is bitwise that of the
+    unsharded day.  There is no
     collective and no host synchronisation between the slab launches.  A
     device may appear more than once, which lets one card exercise the
     slabbing.  A slab whose device is that of the inputs is a view of
@@ -288,14 +371,14 @@ def hydrology_day_sharded(soil: SoilState, veg: VegState,
 
     Replaces the TPU path ``pallas_hydrology_day_sharded`` (a
     ``shard_map`` of the Pallas day kernel over a 1-D mesh).  What bounds
-    it is what bounds the kernel, arithmetic at low occupancy, plus what
-    slabbing adds: the forcing and layout preparation is paid per slab,
-    and on ONE card the slabs run one after another, each filling the
-    card less than the whole grid does.  Four slabs of 69,632 cells on
-    one NVIDIA H100 80GB HBM3 (700 W) take 4.26-4.37 ms against
-    2.61-2.65 ms unsharded and 2.63-2.68 ms for one slab
-    (``chip_smoke.py``); slabs on different cards can overlap, since
-    nothing here waits for a launch.
+    it is what bounds the kernel, a cell's dependent chain, plus what
+    slabbing adds: on ONE card the slabs run one after another on one
+    stream, and a quarter of the grid (one warp a scheduler) takes two
+    thirds of the time of the whole.  Four slabs of 69,632 cells on one
+    NVIDIA H100 80GB HBM3 (700 W) take 3.65-3.68 ms against 1.58 ms
+    unsharded and 1.61 ms for one slab (``chip_smoke.py``, winter state); slabs on
+    different cards can overlap, since nothing here waits for a launch.
+    A slab is a view ``x[lo:hi]`` that the kernel reads in place.
     """
     devices = [torch.device(d) for d in devices]
     home = soil.h2osoi_liq.device

@@ -17,8 +17,8 @@ kernel's branches make its time depend on the state and the forcing, so
 the kernel day (with the impedance operand and the absorptivity) and the
 whole day step are also timed on the initial state under the day-180
 forcing of ``build_flagship_case`` and under 1 January's, and the kernel
-day on the first 33,792 to 69,632 cells of it (whole and partial waves
-of blocks).
+day on the first 33,792 to 69,632 cells of it (one thread block more
+must not cost a round of blocks more).
 
 Needs a CUDA device; prints the card's name and power limit beside the
 numbers.
@@ -160,15 +160,15 @@ def flagship(card: str) -> None:
                   f"{step_ms:.3f} ms ({card})")
 
     # The kernel day by cell count, on the first cells of the initial
-    # state: 128 threads a block, and at 2 resident blocks per SM (199
-    # registers a thread) 264 blocks make one wave of the card's 132 SMs.
+    # state: the card holds 71,808 cells of the main-path instance at
+    # once (17 one-warp blocks on each of 132 SMs).
     for m in (33_792, 66_560, 67_584, 67_712, n):
         def first(x):
             return x[:m]
         fn = kernel_day(sim.state.map(first), case.forcing.map(first),
                         sim.params.map(first))
-        print(f"kernel day with imp, first {m} cells ({-(-m // 128)} "
-              f"blocks): {_event_ms(fn, 20):.3f} ms ({card})")
+        print(f"kernel day with imp, first {m} cells ({-(-m // 32)} "
+              f"warps): {_event_ms(fn, 20):.3f} ms ({card})")
 
     def day():
         return step.day_step(winter, forcing, *run, **kw)
@@ -197,7 +197,7 @@ def flagship(card: str) -> None:
 
     parts = {
         "snow + impedance": snow_and_impedance,
-        "hydrology day (kernel, with its forcing and layouts)":
+        "hydrology day (the kernel's wrapper: one launch)":
             lambda: day_kernel.hydrology_day(
                 winter.soil, winter.veg, sim.params, f_eff, sim.geom,
                 cfg.dt, cfg.nisurf, imp=imp, zd09_every=cfg.zd09_every,

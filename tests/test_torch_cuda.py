@@ -16,7 +16,11 @@ on columns across regimes, the residual included.  The flagship day
 (``Config()`` defaults on the 4-degree grid) runs three winter days
 through ``block_step`` with one kernel launch per day and is held against
 the plain twin; the sharded launcher is held bitwise against the
-unsharded kernel for 1 and 4 slabs of a ragged cell count.
+unsharded kernel for 1 and 4 slabs of a ragged cell count.  The kernel
+takes ragged cell counts around a warp and around the 0.5-degree grid,
+slab views ``x[lo:hi]`` without a copy (bitwise the same cells of the
+whole tensor's day), refuses views whose rows are not contiguous or not
+aligned, and two launches on the same inputs agree bitwise.
 """
 
 import pytest
@@ -60,6 +64,93 @@ def test_day_kernel_rejects_what_it_does_not_take():
         day_kernel.hydrology_day_cuda(soil.map(lambda x: x.half()), *args)
     with pytest.raises(ValueError, match="expected"):
         day_kernel.hydrology_day_cuda(soil, *args, imp=imp[:, :4])
+
+
+def _day_outputs(day):
+    soil, diags = day
+    return dict(h2osoi_liq=soil.h2osoi_liq, zwt=soil.zwt, wa=soil.wa,
+                smp=soil.smp, **diags)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 69_630])
+def test_ragged_cell_counts_match_the_plain_twin(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the day kernel has no CPU form")
+    case = chip_smoke.check_case(n, 8, torch.float32, torch.device("cuda"),
+                                 "reference")
+    before = day_kernel.launches
+    _, res, _ = chip_smoke.check_kernel(f"{n} cells", case, "reference", 8,
+                                        True)
+    assert day_kernel.launches == before + 1
+    assert res < 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nl", [(torch.float32, 8),
+                                      (torch.float64, 20)],
+                         ids=["float32-nl8", "float64-nl20"])
+def test_slab_views_go_in_without_a_copy(dtype, nl):
+    """A slab ``x[lo:hi]`` of every operand, as the sharded launcher cuts
+    them, is read in place: the day of the slab is bitwise the same cells
+    of the whole tensor's day."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the day kernel has no CPU form")
+    soil, veg, params, forcing, geom, imp = chip_smoke.check_case(
+        2048, nl, dtype, torch.device("cuda"), "varied")
+    sw_abs = torch.linspace(0.3, 0.92, 2048, device=imp.device, dtype=dtype)
+    rest = (geom, 1800.0, 48)
+    whole = _day_outputs(day_kernel.hydrology_day_cuda(
+        soil, veg, params, forcing, *rest, imp=imp, sw_abs=sw_abs,
+        zd09_every=8))
+    for lo, hi in ((0, 33), (31, 1055), (2047, 2048)):
+        def cut(x):
+            view = x[lo:hi]
+            assert view.data_ptr() == x.data_ptr() + lo * x.stride(0) \
+                * x.element_size()
+            return view
+        part = _day_outputs(day_kernel.hydrology_day_cuda(
+            soil.map(cut), veg.map(cut), params.map(cut), forcing.map(cut),
+            *rest, imp=cut(imp), sw_abs=cut(sw_abs), zd09_every=8))
+        for name, x in part.items():
+            assert torch.equal(x, whole[name][lo:hi]), (name, lo, hi)
+
+
+@pytest.mark.cuda
+def test_views_with_broken_rows_are_refused():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the day kernel has no CPU form")
+    soil, veg, params, forcing, geom, imp = chip_smoke.check_case(
+        256, 8, torch.float32, torch.device("cuda"), "reference")
+    args = (veg, params, forcing, geom, 1800.0, 48)
+    before = day_kernel.launches
+    layer_major = imp.t().contiguous().t()      # [n, nl] over [nl, n] data
+    assert layer_major.shape == imp.shape
+    with pytest.raises(ValueError, match="rows of imp are not contiguous"):
+        day_kernel.hydrology_day_cuda(soil, *args, imp=layer_major)
+    with pytest.raises(ValueError, match="rows of h2osoi_liq are not"):
+        day_kernel.hydrology_day_cuda(
+            soil.replace(h2osoi_liq=soil.h2osoi_liq.t().contiguous().t()),
+            *args)
+    wide = torch.ones(256, 9, device=imp.device)
+    with pytest.raises(ValueError, match="16-byte"):
+        day_kernel.hydrology_day_cuda(soil, *args, imp=wide[:, 1:])
+    assert day_kernel.launches == before
+
+
+@pytest.mark.cuda
+def test_two_launches_on_the_same_inputs_are_bitwise_equal():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the day kernel has no CPU form")
+    soil, veg, params, forcing, geom, imp = chip_smoke.check_case(
+        69_630, 8, torch.float32, torch.device("cuda"), "varied")
+    args = (soil, veg, params, forcing, geom, 1800.0, 48)
+    first = _day_outputs(day_kernel.hydrology_day_cuda(
+        *args, imp=imp, zd09_every=8))
+    again = _day_outputs(day_kernel.hydrology_day_cuda(
+        *args, imp=imp, zd09_every=8))
+    for name, x in first.items():
+        assert torch.equal(x, again[name]), name
 
 
 def _flagship_blocks(days, **overrides):
