@@ -42,7 +42,10 @@ non-zero:
    respiration, the routed water balance of one day); the first 3 days
    against the same block through the plain twin; the kernel with the
    impedance operand and the absorptivity against its twin on the first
-   day and on the winter state the block ends in;
+   day and on the winter state the block ends in; the focus-cell trace the
+   kernel writes, on the debug sites' cells (``cli.DEBUG_SITES``): every
+   other output bitwise the day without a focus, the trace against the
+   twin's on that cell at zwt's tolerance off knife edges;
 7. sharded launcher: ``hydrology_day_sharded`` over ``[cuda:0]`` and
    ``[cuda:0] * 4`` at 69,632 cells and at a cell count 4 does not
    divide: bitwise (``torch.equal``) the unsharded kernel day, and held
@@ -52,15 +55,29 @@ non-zero:
    launches per day, bitwise the unsharded block;
 8. timing at 69,632 cells: the flagship ``day_step``, the kernel day with
    and without the impedance operand (on the winter state and on the
-   first day's state), the sharded day with 1 and 4 slabs and their plain
-   versions; then the kernel day on the first 33,792 to 69,632 cells of
-   the first day's state (one thread block more must not cost a round of
-   blocks more) and on 282,624 cells, the 0.25-degree grid's count, made
-   by tiling that state;
+   first day's state) and with a focus cell, the sharded day with 1 and
+   4 slabs and their plain versions; then the kernel day on the first
+   33,792 to 69,632 cells of the first day's state (one thread block more
+   must not cost a round of blocks more) and on 282,624 cells, the
+   0.25-degree grid's count, made by tiling that state;
 9. the bound of the day on this card: the bytes the day must move over
    the memory rate against its operations over the float32 rate, the
    operations counted from the kernel's source along the path each of
-   this run's cells takes (``day_kernel.day_operations``).
+   this run's cells takes (``day_kernel.day_operations``);
+10. the year path at full width, through the command line
+   (``cli.main(["run", ...])``, ``Config()`` at 0.5 degrees, the card as
+   the default device): 1901-1902 with ``forcing="device-synthetic"``, a
+   focus site and a checkpoint a year (365 kernel launches a year; every
+   annual field finite on land and fill over the ocean, theta in
+   (0, theta_s], the land residual under 0.1 mm; the focus CSVs); 1902
+   resumed from the 1901 checkpoint into another directory without a
+   focus, its ``axy1902.nc`` byte for byte the straight run's; one year
+   of host ``synthetic`` forcing through the prefetch, in one block and in
+   30-day blocks; 30 days of a NetCDF-3 PGF-style archive written here,
+   read back bitwise.  Each year's seconds, cell-days/s, forcing wait,
+   output and checkpoint seconds, and the restore's, come from the
+   run's own log records (``run.YEAR_LOG``, ``run.OUTPUT_LOG``,
+   ``cli.RESUME_LOG``).
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -69,23 +86,35 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import logging
+import os
 import re
+import shutil
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from hybrid9_tpu_torch import kernels
-from hybrid9_tpu_torch.config import (CANONICAL_ZI_MM, LayerGrid,
+from hybrid9_tpu_torch import cli, kernels
+from hybrid9_tpu_torch.config import (CANONICAL_ZI_MM, Config, LayerGrid,
                                       exponential_interfaces)
 from hybrid9_tpu_torch.data.synthetic import (synthetic_forcing_block,
                                               synthetic_forcing_day,
                                               synthetic_soil_params)
 from hybrid9_tpu_torch.entry import (build_flagship_case,
                                      build_reference_case)
+from hybrid9_tpu_torch.data.device_forcing import \
+    DeviceSyntheticForcingProvider
+from hybrid9_tpu_torch.data.forcing import (PGF_VARIABLES,
+                                            NetCDFForcingProvider)
+from hybrid9_tpu_torch.data.soil import load_soil
+from hybrid9_tpu_torch.io.netcdf import read_grid_file
+from hybrid9_tpu_torch.io.writer import ANNUAL_UNITS
 from hybrid9_tpu_torch.physics import constants as c
 from hybrid9_tpu_torch.physics import day_kernel
+from hybrid9_tpu_torch.run import OUTPUT_LOG, YEAR_LOG
 from hybrid9_tpu_torch.physics.hydrology import Geometry
 from hybrid9_tpu_torch.physics.soiltemp import freeze_impedance_from_ice
 from hybrid9_tpu_torch.state import (AnnualAccumulators, Forcing, SoilParams,
@@ -101,6 +130,9 @@ REFERENCE_DAYS = 10
 FLAGSHIP_DAYS = 30
 SHARDED_DAYS = 5
 SLABS = 4
+YEARS = (1901, 1902)      # the year path's run
+PGF_DAYS = 30
+FOCUS_SITE = "vaira"
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory and
 # float32 outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -442,6 +474,256 @@ def check_sharded(label, day_args, kw, devices, held=None):
     return err
 
 
+def check_focus(label, day_args, kw, cells, held):
+    """The kernel's focus-cell trace on ``day_args``: with each focus cell
+    of ``cells`` every other output of the kernel day is bitwise that of
+    the day without a focus; the trace ends at the cell's new water
+    table; and where ``held`` (off knife edges) it is held against the
+    plain twin's trace of that cell (run on the cell alone: the physics
+    is cell-local) at zwt's tolerance.  Returns (max |kernel - twin| of
+    the held traces in m, number of cells held)."""
+    def outputs(day):
+        return dict(_fields(*day), max_abs_residual=day[1][
+            "max_abs_residual"])
+
+    base = outputs(day_kernel.hydrology_day_cuda(*day_args, **kw))
+    soil, veg, params, forcing = day_args[:4]
+    tol = F64_TOL if soil.zwt.dtype == torch.float64 else F32_TOL
+    err, n_held = 0.0, 0
+    for cell in cells:
+        got = day_kernel.hydrology_day_cuda(*day_args, focus_idx=cell, **kw)
+        trace = got[1].pop("wt_substeps")
+        for name, x in outputs(got).items():
+            if not torch.equal(x, base[name]):
+                raise RuntimeError(f"{label}: {name} with focus {cell} is "
+                                   f"not bitwise the day without a focus")
+        if trace.shape != (day_args[6],) or not torch.equal(
+                trace[-1], got[0].zwt[cell]):
+            raise RuntimeError(f"{label}: the trace of cell {cell} does not "
+                               f"end at its water table")
+        if not bool(held[cell]):
+            continue
+
+        def one(x):
+            return x[cell:cell + 1]
+        extra = {k: (one(v) if isinstance(v, torch.Tensor) else v)
+                 for k, v in kw.items()}
+        want = day_kernel.hydrology_day_plain(
+            soil.map(one), veg.map(one), params.map(one), forcing.map(one),
+            *day_args[4:], focus_idx=0, **extra)[1]["wt_substeps"]
+        rtol, atol = tol["zwt"]
+        d = (trace.double() - want.double()).abs()
+        if bool((d > atol + rtol * want.double().abs()).any()):
+            raise RuntimeError(f"{label}: the trace of cell {cell} is off "
+                               f"the twin's by {float(d.max()):.3e} m")
+        err, n_held = max(err, float(d.max())), n_held + 1
+    return err, n_held
+
+
+class YearLog(logging.Handler):
+    """Collects the year loop's log records by their arguments
+    (``run.YEAR_LOG``, ``run.OUTPUT_LOG``, ``cli.RESUME_LOG``), with the
+    day kernel's launch count at the end of each year."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.years, self.outputs, self.restores = [], {}, []
+
+    def emit(self, record):
+        if record.msg == YEAR_LOG:
+            year, days, seconds, rate, wait, res = record.args
+            self.years.append(dict(
+                year=year, days=days, seconds=seconds, cell_days_per_s=rate,
+                forcing_wait_s=wait, max_residual_mm=res,
+                launches=day_kernel.launches))
+        elif record.msg == OUTPUT_LOG:
+            year, write_s, checkpoint_s = record.args
+            self.outputs[year] = dict(write_s=write_s,
+                                      checkpoint_s=checkpoint_s)
+        elif record.msg == cli.RESUME_LOG:
+            self.restores.append(dict(year=record.args[0],
+                                      seconds=record.args[1]))
+
+
+def run_years(tmp, name, log, argv=(), **cfg_kw):
+    """``cli.main(["run", ...])`` on a Config file of ``cfg_kw`` with its
+    output and checkpoints under ``tmp/name``, the kernel's count set to
+    0 just before; returns (wall seconds, launches, the years' records
+    with their launches per year, the output directory)."""
+    out = os.path.join(tmp, name)
+    cfg = Config(output_path=out, checkpoint_path=out + "_ck", **cfg_kw)
+    path = out + ".json"
+    with open(path, "w") as f:
+        f.write(cfg.to_json())
+    first = len(log.years)
+    day_kernel.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["run", "--config", path, *argv])
+    wall = time.perf_counter() - t0
+    launches = day_kernel.launches
+    if rc != 0:
+        raise RuntimeError(f"year path {name}: exit code {rc}")
+    years = log.years[first:]
+    before = 0
+    for y in years:
+        y["launches"], before = y["launches"] - before, y["launches"]
+        y.update(log.outputs.get(y["year"], {}))
+    return wall, launches, years, out
+
+
+def check_annual_file(label, path, land, theta_s):
+    """An annual file as the year path must write it: every field finite
+    on land and fill (NaN when read) over the ocean; theta in
+    (0, theta_s] (with 1e-6 relative slack for the float32 rounding of
+    the two written means); the land water balance within
+    MAX_RESIDUAL_MM.  Returns (max residual, theta min, theta max)."""
+    fields = read_grid_file(path, list(ANNUAL_UNITS))
+    for name, x in fields.items():
+        on_land = x[land]
+        if not np.isfinite(on_land).all():
+            raise RuntimeError(f"{label}: {name} is not finite on land")
+        if np.isfinite(x[~land]).any():
+            raise RuntimeError(f"{label}: {name} is not fill over the ocean")
+    theta = fields["theta"][land]
+    cap = theta_s[land] * (1.0 + 1e-6)
+    if not (theta.min() > 0.0 and (theta <= cap).all()):
+        raise RuntimeError(f"{label}: theta in [{theta.min()}, "
+                           f"{theta.max()}] against theta_s")
+    res = float(fields["max_abs_residual"][land].max())
+    if not res < MAX_RESIDUAL_MM:
+        raise RuntimeError(f"{label}: residual {res} mm")
+    return res, float(theta.min()), float(theta.max())
+
+
+def year_path(tmp, dev, smi, argv=(), **cfg_kw):
+    """Phase 10, the year loop at full width through the command line:
+    two flagship years with on-device forcing, a focus site and a
+    checkpoint a year; 1902 resumed from the 1901 checkpoint into another
+    directory, without a focus; one year of host forcing through the
+    prefetch, in one block and in 30-day blocks; and 30 days of a
+    NetCDF-3 PGF-style archive written here and read back.  ``cfg_kw``
+    and ``argv`` are for rehearsals on a small grid: the card runs
+    ``Config()`` as it stands.  Returns the phase's summary."""
+    log = YearLog()
+    logger = logging.getLogger("hybrid9_tpu_torch")
+    logger.addHandler(log)
+    try:
+        wall, launches, years, out = run_years(
+            tmp, "straight", log, ["--focus", FOCUS_SITE, *argv],
+            forcing="device-synthetic", start_year=YEARS[0],
+            end_year=YEARS[1], checkpoint_every_years=1, **cfg_kw)
+        ndays = [y["days"] for y in years]
+        if len(years) != 2 or [y["launches"] for y in years] != ndays or \
+                launches != sum(ndays):
+            raise RuntimeError(f"year path: {launches} kernel launches, "
+                               f"by year {years}")
+        init = read_grid_file(os.path.join(out, "init_diagnostics.nc"),
+                              ["land_mask", "theta_s"])
+        land = init["land_mask"] == 1.0
+        files = {y: check_annual_file(f"axy{y}.nc",
+                                      os.path.join(out, f"axy{y}.nc"),
+                                      land, init["theta_s"])
+                 for y in YEARS}
+        with open(os.path.join(out, "focus_daily.csv")) as f:
+            daily = f.read().splitlines()[1:]
+        with open(os.path.join(out, "focus_wt.csv")) as f:
+            wt = np.array([r.split(",") for r in f.read().splitlines()[1:]],
+                          np.float64)
+        nisurf = Config(**cfg_kw).nisurf
+        if len(daily) != sum(ndays) or wt.shape != (sum(ndays) * nisurf, 4) \
+                or not np.isfinite(wt).all():
+            raise RuntimeError(f"focus CSVs: {len(daily)} days, trace "
+                               f"{wt.shape}")
+        print(f"year path: {YEARS[0]}-{YEARS[1]}, device-synthetic forcing, "
+              f"focus {FOCUS_SITE}: {launches} kernel launches ("
+              f"{[y['launches'] for y in years]} by year), {wall:.2f} s "
+              f"wall; files (max residual mm, theta min, max): "
+              + json.dumps(files) + f"; focus CSVs {len(daily)} days, "
+              f"{wt.shape[0]} substeps")
+
+        # 1902 again from the 1901 checkpoint, in another directory.
+        os.makedirs(os.path.join(tmp, "resumed_ck"))
+        shutil.copy(os.path.join(out + "_ck", f"year_{YEARS[0]}.pt"),
+                    os.path.join(tmp, "resumed_ck"))
+        r_wall, r_launches, r_years, r_out = run_years(
+            tmp, "resumed", log, ["--resume", *argv],
+            forcing="device-synthetic", start_year=YEARS[0],
+            end_year=YEARS[1], checkpoint_every_years=1, **cfg_kw)
+        if r_launches != ndays[1] or [y["year"] for y in r_years] != \
+                [YEARS[1]]:
+            raise RuntimeError(f"resumed year path: {r_launches} launches, "
+                               f"years {r_years}")
+        name = f"axy{YEARS[1]}.nc"
+        with open(os.path.join(out, name), "rb") as a, \
+                open(os.path.join(r_out, name), "rb") as b:
+            if a.read() != b.read():
+                raise RuntimeError(f"resumed {name} is not byte for byte "
+                                   f"the straight run's")
+        print(f"year path resumed from {YEARS[0]}: {r_launches} launches, "
+              f"{name} byte for byte the straight run's (which had a focus "
+              f"cell; this one has none); restore "
+              f"{log.restores[-1]['seconds']:.3f} s")
+
+        host = {}
+        for block_days in (366, 30):
+            h_wall, h_launches, h_years, h_out = run_years(
+                tmp, f"host_{block_days}", log, argv, forcing="synthetic",
+                start_year=YEARS[0], end_year=YEARS[0],
+                forcing_block_days=block_days, **cfg_kw)
+            if h_launches != ndays[0]:
+                raise RuntimeError(f"host-forcing year: {h_launches} "
+                                   f"launches")
+            check_annual_file(f"host forcing, {block_days}-day blocks",
+                              os.path.join(h_out, f"axy{YEARS[0]}.nc"),
+                              land, init["theta_s"])
+            host[block_days] = dict(h_years[0], wall_s=h_wall)
+
+        # 30 days of a PGF-style archive (NetCDF-3), read back bitwise.
+        grid, _ = load_soil(Config(**cfg_kw), torch.float32, dev)
+        blk = DeviceSyntheticForcingProvider(
+            grid.n_padded, seed=7, lat=grid.cell_lat,
+            device=dev)(YEARS[0], 1, PGF_DAYS)
+        from scipy.io import netcdf_file
+        pgf_dir = os.path.join(tmp, "pgf")
+        os.makedirs(pgf_dir)
+        n_land = grid.n_land
+        for var in PGF_VARIABLES:
+            packed = getattr(blk, var).cpu().numpy()
+            brick = np.full((PGF_DAYS, grid.ny * grid.nx), 1.0e20,
+                            np.float32)
+            brick[:, grid.land_idx] = packed[:, :n_land]
+            with netcdf_file(os.path.join(pgf_dir, f"{var}_{YEARS[0]}.nc"),
+                             "w") as f:
+                f.createDimension("time", PGF_DAYS)
+                f.createDimension("lat", grid.ny)
+                f.createDimension("lon", grid.nx)
+                f.createVariable(var, "f", ("time", "lat", "lon"))[:] = \
+                    brick.reshape(PGF_DAYS, grid.ny, grid.nx)
+        t0 = time.perf_counter()
+        back = NetCDFForcingProvider(os.path.join(pgf_dir, "{var}_{year}.nc"),
+                                     grid, device=dev)(YEARS[0], 1, PGF_DAYS)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        read_s = time.perf_counter() - t0
+        for var in PGF_VARIABLES:
+            got, want = getattr(back, var), getattr(blk, var)
+            if got.device != want.device or not torch.equal(
+                    got[:, :n_land], want[:, :n_land]) or not torch.equal(
+                    got[:, n_land:], got[:, :1].expand(-1, got.shape[1]
+                                                       - n_land)):
+                raise RuntimeError(f"PGF archive: {var} read back is not "
+                                   f"what was written")
+        print(f"PGF-style archive, {PGF_DAYS} days x {grid.ny}x{grid.nx}, "
+              f"NetCDF-3: read back bitwise in {read_s:.3f} s")
+    finally:
+        logger.removeHandler(log)
+    summary = dict(launches=launches, years=years, resumed=r_years[0],
+                   restore_s=log.restores[-1]["seconds"], host=host,
+                   pgf_read_s=read_s, wall_s=wall)
+    print(f"year path timings ({smi}): " + json.dumps(summary))
+    return summary
+
+
 def main() -> None:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -683,6 +965,24 @@ def main() -> None:
           f"{winter_err:.3e} mm on the winter state ({int(edge.sum())} "
           f"knife-edge cells set aside)")
 
+    # The focus-cell trace the kernel writes, on the cells of the debug
+    # sites: on the first day and on the winter state.
+    sites = {name: flag.land_grid.cell_index_of(lon, lat)
+             for name, (lon, lat) in cli.DEBUG_SITES.items()}
+    focus_cell = sites[FOCUS_SITE]
+    cells = sorted(set(sites.values()))
+    first_focus = check_focus("focus trace, flagship first day", first_args,
+                              first_kw, cells,
+                              torch.ones(n, dtype=torch.bool, device=dev))
+    winter_focus = check_focus("focus trace, flagship winter state",
+                               winter_args, winter_kw, cells, ~edge)
+    focus_err = max(first_focus[0], winter_focus[0])
+    print(f"focus trace from the kernel, {len(cells)} debug-site cells: "
+          f"other outputs bitwise the day without a focus; against the "
+          f"twin's trace {first_focus[0]:.3e} m on the first day "
+          f"({first_focus[1]} cells), {winter_focus[0]:.3e} m on the winter "
+          f"state ({winter_focus[1]} cells off knife edges)")
+
     # 7. Sharded launcher: bitwise the unsharded kernel, and against its
     # plain version.
     sharded_err = 0.0
@@ -734,6 +1034,7 @@ def main() -> None:
     no_imp = dict(imp=None)
     forms = dict(
         imp=day_fn(day_kernel.hydrology_day_cuda),
+        imp_focus=day_fn(day_kernel.hydrology_day_cuda, focus_idx=focus_cell),
         no_imp=day_fn(day_kernel.hydrology_day_cuda, **no_imp),
         first_day_imp=first_fn(),
         first_day_no_imp=first_fn(**no_imp),
@@ -756,6 +1057,8 @@ def main() -> None:
     flag_what = f"flagship, zd09_every={fcfg.zd09_every}"
     timing("flagship day_step with kernel", fstep_ms, n, flag_what)
     timing("kernel day with imp", fms["imp"], n, flag_what)
+    timing("kernel day with imp and a focus cell", fms["imp_focus"], n,
+           flag_what)
     timing("kernel day without imp", fms["no_imp"], n, flag_what)
     timing("kernel day with imp, first day's state", fms["first_day_imp"],
            n, flag_what)
@@ -800,6 +1103,10 @@ def main() -> None:
     bound = day_bound(winter_args, imp, fcfg.zd09_every)
     print("bound of the flagship kernel day: " + json.dumps(bound))
 
+    # 10. The year loop at full width, through the command line.
+    with tempfile.TemporaryDirectory() as tmp:
+        year = year_path(tmp, dev, smi)
+
     common = dict(route="cuda",
                   source="hybrid9_tpu_torch/csrc/day_kernel.cu",
                   bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
@@ -809,7 +1116,12 @@ def main() -> None:
              replaces="hybrid9_tpu/physics/pallas_day.py:36",
              launches=flag_launches, max_abs_err=max(flag_err, winter_err),
              ms=fms["imp"], first_day_ms=fms["first_day_imp"],
+             focus_ms=fms["imp_focus"], focus_max_abs_err_m=focus_err,
              plain_ms=flag_plain_ms,
+             year_path=dict(launches=year["launches"],
+                            launches_by_year=[y["launches"]
+                                              for y in year["years"]],
+                            resumed_launches=year["resumed"]["launches"]),
              reference_path=dict(launches=ref_launches, max_abs_err=ref_err,
                                  ms=ref_kernel_ms, plain_ms=ref_plain_ms,
                                  cells=N_CELLS)),

@@ -1,22 +1,29 @@
 """Run configuration for the PyTorch port of HYBRID9.
 
-A numpy-only copy of the parts of ``hybrid9_tpu/config.py`` that the
-day loop and ``run.Simulation`` read: the canonical vertical grid
-(``CANONICAL_ZI_MM``, ``LayerGrid``) and ``Config`` with the flagship
-physics switches at the JAX package's defaults.  The TPU knobs
-``use_pallas``, ``pallas_block`` and ``pallas_interpret`` become one
-``use_kernel`` switch; donation and the compilation cache have no
-counterpart here.
+A numpy-only copy of ``hybrid9_tpu/config.py``: the canonical vertical
+grid (``CANONICAL_ZI_MM``, ``LayerGrid``) and ``Config`` with every field
+at the JAX package's default.  The TPU knobs ``use_pallas``,
+``pallas_block`` and ``pallas_interpret`` become one ``use_kernel``
+switch; donation and the mesh axis name have no counterpart here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from .physics import constants as c
+from .utils.logging import get_logger
+
+log = get_logger(__name__)
+
+#: Fields of the JAX package's Config that only the TPU build reads;
+#: ``from_json`` drops them.
+TPU_ONLY_KEYS = ("use_pallas", "pallas_block", "pallas_interpret",
+                 "donate_state", "mesh_axis")
 
 # Canonical 0.5-degree soil-interface depths in mm, surface down to the
 # aquifer interface (reference: EXECUTE/driver.txt:17-26).  zi[0] = 0 is the
@@ -89,20 +96,50 @@ class LayerGrid:
 class Config:
     """Declarative run configuration.
 
-    The fields the day loop and ``run.Simulation`` read, with the JAX
-    package's defaults.  ``use_kernel`` selects the hand-written CUDA day
-    kernel: None takes it exactly when the tensors are on a CUDA device,
-    True demands it (and raises on CPU tensors), False takes the plain
-    PyTorch twin everywhere.  A switch whose code is not ported yet
-    (two-layer snow, the Muskingum and packed routers, lateral
-    groundwater, ``vegetation=False``, a network or soil file) is kept
-    with its default and raises ``NotImplementedError`` where it is read.
+    Field-by-field the JAX package's (driver.txt's, EXECUTE/driver.txt,
+    plus dtype, checkpointing and the kernel switch), with its defaults.
+    ``use_kernel`` selects the hand-written CUDA day kernel: None takes it
+    exactly when the tensors are on a CUDA device, True demands it (and
+    raises on CPU tensors), False takes the plain PyTorch twin
+    everywhere.  A switch whose code is not ported yet (two-layer snow,
+    the Muskingum and packed routers, lateral groundwater,
+    ``vegetation=False``: ROADMAP A5.6) is kept with its default and
+    raises ``NotImplementedError`` where it is read.
     """
 
+    # --- Time stepping (driver.txt:2,4-5) ---------------------------------
     nisurf: int = c.NISURF_DEFAULT    # Surface substeps per day.
+    start_year: int = 1901            # First simulated calendar year.
+    end_year: int = 1910              # Last simulated calendar year.
     resolution_deg: float = 0.5       # Lon/lat cell size (0.5 or 0.25).
     zi_mm: Tuple[float, ...] = CANONICAL_ZI_MM
+
+    # --- Forcing (driver.txt:3; READ_PGF.f90) -----------------------------
+    forcing: str = "synthetic"        # "synthetic" | "device-synthetic"
+                                      # | "pgf".
+    forcing_path: Optional[str] = None
+    forcing_block_days: int = 366     # Days of forcing resident per block.
+
+    # --- Soil parameters (INIT.f90:473-726) -------------------------------
     soil_source: str = "synthetic"    # "synthetic" | "netcdf" | "raw".
+    soil_path: Optional[str] = None   # Preprocessed per-layer file
+                                      # (written by prep-soil for "raw").
+    soil_hwsd_path: Optional[str] = None   # Raw HWSD texture NetCDF.
+    soil_bnu_dir: Optional[str] = None     # Raw BNU 30-arc-sec archive dir.
+    soil_fmax_path: Optional[str] = None   # Raw Fmax NetCDF (optional).
+
+    # --- Site / focus cell (driver.txt:6-16) ------------------------------
+    interactive: bool = False         # Daily CSV of one focus cell.
+    site_lon: float = -120.95         # Focus longitude (Vaira Ranch).
+    site_lat: float = 38.41           # Focus latitude.
+    spinup_years: int = 0             # Spin-up repeats (site mode, A7).
+
+    # --- Output / checkpointing -------------------------------------------
+    output_path: str = "output"
+    write_annual: bool = True         # Write axy<year> annual diagnostics.
+    checkpoint_every_years: int = 0   # 0 = disabled.
+    checkpoint_path: str = "checkpoints"
+
     dtype: str = "float32"            # Working dtype for the physics.
     cell_block: int = 1024            # Pad n_land to a multiple of this.
     use_kernel: Optional[bool] = None  # CUDA day kernel; None = on CUDA.
@@ -122,7 +159,10 @@ class Config:
     routing_network_path: Optional[str] = None  # None = synthetic DEM.
     routing_substeps: int = 8         # Sub-daily transfer steps per day.
     routing_celerity: float = 0.8     # Kinematic ref celerity c0 (m/s).
+    routing_k: float = 0.2            # Linear-reservoir release per day.
+    routing_manning: float = 0.035    # Muskingum-Cunge channel Manning n.
     lateral_groundwater: bool = False  # Aquifer exchange between cells.
+    lateral_k: float = 1.0e-6         # Groundwater exchange coeff (/day).
 
     # --- Snow, frozen soil, carbon, vegetation -----------------------------
     snow: bool = True                 # Daily snowpack (physics/snow.py):
@@ -158,3 +198,23 @@ class Config:
     @property
     def ny(self) -> int:
         return int(round(180.0 / self.resolution_deg))
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str) -> "Config":
+        """A Config from ``to_json``'s text, or from the JAX package's
+        ``Config.to_json()``: its TPU-only keys (``TPU_ONLY_KEYS``) are
+        dropped with one log line; any other unknown key raises."""
+        data = json.loads(text)
+        tpu = sorted(k for k in TPU_ONLY_KEYS if k in data)
+        if tpu:
+            log.info("config: dropped the TPU-only keys %s", ", ".join(tpu))
+        data = {k: v for k, v in data.items() if k not in TPU_ONLY_KEYS}
+        unknown = sorted(set(data) - {f.name for f in dataclasses.fields(cls)})
+        if unknown:
+            raise ValueError(f"config: unknown keys {unknown}")
+        if "zi_mm" in data:
+            data["zi_mm"] = tuple(data["zi_mm"])
+        return cls(**data)

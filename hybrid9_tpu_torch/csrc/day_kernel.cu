@@ -187,6 +187,8 @@ struct Args {
   int n;
   int nisurf;
   int zd09_every;
+  int focus;          // the focus cell, or -1 for none
+  Real* wt_trace;     // [nisurf]: the focus cell's zwt after each substep
 };
 
 // Input slots (see day_kernel.py::hydrology_day_cuda).
@@ -924,6 +926,9 @@ __global__ void __launch_bounds__(BLOCK, Build<Real, NL>::min_blocks)
 
     zwt = zwt2;
     wa = wa2;
+    // The focus cell's water-table trace (the reference's unit-98 dump,
+    // HYDROLOGY.f90:509); it feeds nothing back into the day.
+    if (cell == args.focus) args.wt_trace[it] = zwt;
     evap = evap + (qevap + qtran) * dt;
     evap_grnd = evap_grnd + qevap * dt;
     rnf = rnf + (qflx_surf + rsub_top) * dt;
@@ -1009,7 +1014,7 @@ struct Instance {
   static int launch(const void* const* ins, const int* strides,
                     void* const* outs, int n, int grid, int nisurf,
                     int zd09_every, double dt, const double* geom,
-                    cudaStream_t stream) {
+                    int focus, void* wt_trace, cudaStream_t stream) {
     int res[4];
     const int rc = residency(res);
     if (rc != 0) return rc;
@@ -1041,6 +1046,8 @@ struct Instance {
     args.n = n;
     args.nisurf = nisurf;
     args.zd09_every = zd09_every;
+    args.focus = focus;
+    args.wt_trace = static_cast<Real*>(wt_trace);
     day_kernel<Real, NL, WITH_IMP>
         <<<grid, BLOCK, shared_bytes, stream>>>(args);
     return static_cast<int>(cudaGetLastError());
@@ -1086,17 +1093,23 @@ extern "C" int h9_day_residency(int dtype_bytes, int nl, int with_imp,
 // null when with_imp is 0, I_SWABS may be null: 0.92 everywhere), strides
 // the elements from one cell to the next of each input (rows of layered
 // inputs are contiguous and 16-byte aligned), outs N_OUT contiguous
-// outputs; geom holds zi[nl+2], dz[nl], zc[nl] on the host.  Launches
-// `grid` blocks of one warp on `stream`, a thread for each cell.
-// Allocates nothing, never syncs.
+// outputs; geom holds zi[nl+2], dz[nl], zc[nl] on the host.  focus is a
+// cell in [0, n) whose zwt after each substep goes to wt_trace[nisurf] on
+// the device, or -1 (wt_trace may then be null).  Launches `grid` blocks
+// of one warp on `stream`, a thread for each cell.  Allocates nothing,
+// never syncs.
 extern "C" int h9_hydrology_day(int dtype_bytes, int nl, int with_imp,
                                 const void* const* ins, const int* strides,
                                 void* const* outs, int n, int grid,
                                 int nisurf, int zd09_every, double dt,
-                                const double* geom, void* stream) {
+                                const double* geom, int focus,
+                                void* wt_trace, void* stream) {
   if (n < 1 || grid < (n + BLOCK - 1) / BLOCK) return -1;
+  if (focus < -1 || focus >= n || (focus >= 0 && wt_trace == nullptr))
+    return -1;
   return with_instance(dtype_bytes, nl, with_imp, [&](auto inst) {
     return inst.launch(ins, strides, outs, n, grid, nisurf, zd09_every, dt,
-                       geom, static_cast<cudaStream_t>(stream));
+                       geom, focus, wt_trace,
+                       static_cast<cudaStream_t>(stream));
   });
 }

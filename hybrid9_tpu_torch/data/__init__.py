@@ -1,1 +1,1 @@
-"""Synthetic numpy generators shared with the JAX package."""
+"""Data ingest: synthetic generators, soil-property and forcing pipelines."""

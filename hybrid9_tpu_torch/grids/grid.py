@@ -38,6 +38,10 @@ class LandGrid:
     resolution_deg: float
     land_idx: np.ndarray      # [n_land] flat indices into the global grid
     n_padded: int
+    #: Optional [ny, nx] HWSD texture classes, kept (when the soil source
+    #: has them) for the init-diagnostic dump, the analog of the
+    #: reference's soil_tex.nc input-mask artifact (INIT.f90:835).
+    soil_tex: "np.ndarray | None" = None
 
     @property
     def n_land(self) -> int:

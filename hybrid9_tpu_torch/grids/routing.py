@@ -2,20 +2,24 @@
 
 A numpy-only copy of the parts of ``hybrid9_tpu/grids/routing.py`` that
 the dense kinematic router needs: a D8 flow-direction network over the
-land grid (steepest-descent neighbour on an elevation field) mapped onto
-the packed cell axis (for every packed land cell, the packed index of
-its downstream cell, or ``n_padded``, a virtual ocean outlet, where the
-cell drains off-land), the hop lengths, and the dense direction codes of
-the roll stencil (physics/routing.py).  Reading a network file, the
-Muskingum reach geometry and flow accumulation are not ported yet
-(ROADMAP A6, A5.6).
+land grid (steepest-descent neighbour on an elevation field, or a
+flow-direction or elevation file) mapped onto the packed cell axis (for
+every packed land cell, the packed index of its downstream cell, or
+``n_padded``, a virtual ocean outlet, where the cell drains off-land),
+the hop lengths, and the dense direction codes of the roll stencil
+(physics/routing.py).  The Muskingum reach geometry and flow
+accumulation are not ported yet (ROADMAP A5.6).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..io import netcdf
+from ..utils.logging import get_logger
 from .grid import LandGrid
+
+log = get_logger(__name__)
 
 # D8 neighbour offsets (dy, dx).
 _D8 = [(-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0),
@@ -187,19 +191,100 @@ def _break_cycles(down: np.ndarray, outlet: int) -> int:
     return n_broken
 
 
+# ESRI/ArcGIS D8 power-of-two flow-direction codes -> (dy, dx) on a
+# north-up grid (1=E, 2=SE, 4=S, 8=SW, 16=W, 32=NW, 64=N, 128=NE), the
+# convention of the common global flow-direction products (HydroSHEDS,
+# DRT); 0 or missing = sink/outlet.
+_ESRI_D8 = {1: (0, 1), 2: (1, 1), 4: (1, 0), 8: (1, -1),
+            16: (0, -1), 32: (-1, -1), 64: (-1, 0), 128: (-1, 1)}
+
+
+def downstream_from_flowdir(grid: LandGrid,
+                            flowdir: np.ndarray) -> np.ndarray:
+    """Packed downstream index from an ESRI-coded D8 direction field.
+
+    ``flowdir`` is ``[ny, nx]`` with power-of-two codes; cells whose code
+    is 0/missing/unrecognised, or whose receiving neighbour is ocean or
+    off-grid, drain to the virtual outlet (index ``n_padded``).
+    Longitude wraps; latitude clamps at the poles.  Self-loops and
+    directed cycles are redirected to the outlet.
+    """
+    ny, nx = grid.ny, grid.nx
+    if flowdir.shape != (ny, nx):
+        raise ValueError(f"flowdir shape {flowdir.shape} != grid "
+                         f"{(ny, nx)}")
+    land = np.zeros(ny * nx, bool)
+    land[grid.land_idx] = True
+    land = land.reshape(ny, nx)
+    packed_of = np.full(ny * nx, -1, np.int64)
+    packed_of[grid.land_idx] = np.arange(grid.n_land)
+
+    ys = grid.land_idx // nx
+    xs = grid.land_idx % nx
+    codes = np.where(np.isfinite(flowdir), flowdir, 0).astype(np.int64)
+    code = codes[ys, xs]
+    down = np.full(grid.n_land, grid.n_padded, np.int64)
+    for c_val, (dy, dx) in _ESRI_D8.items():
+        sel = code == c_val
+        if not np.any(sel):
+            continue
+        yn = ys[sel] + dy
+        xn = (xs[sel] + dx) % nx
+        valid = (yn >= 0) & (yn < ny)
+        ync = np.clip(yn, 0, ny - 1)
+        is_land = valid & land[ync, xn]
+        down[sel] = np.where(is_land, packed_of[ync * nx + xn],
+                             grid.n_padded)
+    self_loop = down == np.arange(grid.n_land)
+    down[self_loop] = grid.n_padded
+    n_broken = _break_cycles(down, grid.n_padded)
+    if n_broken:
+        log.warning("flowdir network contained directed cycles: %d cell(s) "
+                    "redirected to the ocean outlet", n_broken)
+
+    downstream = np.full(grid.n_padded, grid.n_padded, np.int64)
+    downstream[:grid.n_land] = down
+    return downstream.astype(np.int32)
+
+
 def load_network(grid: LandGrid, path: str | None, seed: int = 0
                  ) -> tuple[np.ndarray, np.ndarray | None]:
-    """``(downstream, elevation)`` of the synthetic network (``path`` is
-    None): steepest descent on :func:`synthetic_elevation`.  Reading a
-    flow-direction or elevation file is not ported yet."""
-    if path is not None:
-        raise NotImplementedError(
-            f"routing_network_path={path!r}: reading a network file is "
-            "not ported yet: ROADMAP A6 (year loop, forcing and I/O)")
-    land = np.zeros(grid.ny * grid.nx, bool)
-    land[grid.land_idx] = True
-    elevation = synthetic_elevation(land.reshape(grid.ny, grid.nx), seed)
-    return build_downstream_index(grid, elevation=elevation), elevation
+    """``(downstream, elevation)`` from a network file, or the synthetic
+    network (steepest descent on :func:`synthetic_elevation`) when
+    ``path`` is None.
+
+    The file (NetCDF-3 or -4, model resolution) may hold ``flowdir``
+    (ESRI D8 codes, used directly) and/or ``elevation`` (m, steepest
+    descent applied); with both, ``flowdir`` defines the topology and
+    ``elevation`` is returned for the reach slopes.
+    """
+    if path is None:
+        land = np.zeros(grid.ny * grid.nx, bool)
+        land[grid.land_idx] = True
+        elevation = synthetic_elevation(land.reshape(grid.ny, grid.nx),
+                                        seed)
+        return build_downstream_index(grid, elevation=elevation), elevation
+
+    have = {}
+    for var in ("flowdir", "elevation"):
+        try:
+            have[var] = np.asarray(netcdf.read_variable(path, var),
+                                   np.float64)
+        except KeyError:
+            continue
+    if not have:
+        raise ValueError(f"{path}: need a 'flowdir' or 'elevation' "
+                         "variable")
+    elevation = None
+    if "elevation" in have:
+        elevation = have["elevation"]
+        elevation = np.where(np.isfinite(elevation)
+                             & (elevation < 9.9e19), elevation, 0.0)
+    if "flowdir" in have:
+        downstream = downstream_from_flowdir(grid, have["flowdir"])
+    else:
+        downstream = build_downstream_index(grid, elevation=elevation)
+    return downstream, elevation
 
 
 def direction_codes(grid: LandGrid, downstream: np.ndarray) -> np.ndarray:

@@ -55,7 +55,8 @@ def hydrology_day_plain(soil: SoilState, veg: VegState, params: SoilParams,
                         forcing: Forcing, geom: Geometry, dt: float,
                         nisurf: int, imp: Optional[torch.Tensor] = None,
                         zd09_every: int = 1,
-                        sw_abs: Optional[torch.Tensor] = None) -> DayResult:
+                        sw_abs: Optional[torch.Tensor] = None,
+                        focus_idx: Optional[int] = None) -> DayResult:
     """``nisurf`` hydrology substeps in plain torch.
 
     With ``zd09_every > 1`` the ZD09 and specific-yield profiles are
@@ -64,7 +65,9 @@ def hydrology_day_plain(soil: SoilState, veg: VegState, params: SoilParams,
     ``[n, nl]`` frozen-soil impedance and ``sw_abs`` the optional ``[n]``
     shortwave absorptivity (0.92 without it).  Returns the new
     SoilState and the daily sums ``evap_day``, ``evap_grnd_day``,
-    ``rnf_day`` (mm) and ``max_abs_residual`` (mm).
+    ``rnf_day`` (mm) and ``max_abs_residual`` (mm); with ``focus_idx``
+    also ``wt_substeps``, the ``[nisurf]`` water table of that cell after
+    each substep.
     """
     fd = derive_forcing(forcing, sw_abs)
     et_ctx = daily_et_context(fd, veg.lai)
@@ -77,6 +80,7 @@ def hydrology_day_plain(soil: SoilState, veg: VegState, params: SoilParams,
     imp_l = None if imp is None else unstack(imp)
     evap = evap_grnd = rnf = max_res = torch.zeros_like(zwt)
     zq = sy = None
+    trace = []
     for it in range(nisurf):
         if zd09_every > 1 and it % zd09_every == 0:
             zq = compute_equilibrium_zq(zwt, p_ts, p_ps, p_bs, geom.zi)
@@ -90,10 +94,15 @@ def hydrology_day_plain(soil: SoilState, veg: VegState, params: SoilParams,
         evap_grnd = evap_grnd + out["qflx_evap_grnd"] * dt
         rnf = rnf + (out["qflx_surf"] + out["rsub_top"]) * dt
         max_res = torch.maximum(max_res, torch.abs(out["residual"]))
+        if focus_idx is not None:
+            trace.append(zwt[focus_idx])
     new_soil = SoilState(h2osoi_liq=stack(h), zwt=zwt, wa=wa,
                          smp=stack(smp), h2osoi_liq_ma=soil.h2osoi_liq_ma)
-    return new_soil, dict(evap_day=evap, evap_grnd_day=evap_grnd,
-                          rnf_day=rnf, max_abs_residual=max_res)
+    diags = dict(evap_day=evap, evap_grnd_day=evap_grnd, rnf_day=rnf,
+                 max_abs_residual=max_res)
+    if focus_idx is not None:
+        diags["wt_substeps"] = torch.stack(trace)
+    return new_soil, diags
 
 
 def day_operations(nl: int, nisurf: int, zd09_every: int, with_imp: bool,
@@ -232,10 +241,14 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
                        forcing: Forcing, geom: Geometry, dt: float,
                        nisurf: int, imp: Optional[torch.Tensor] = None,
                        zd09_every: int = 1,
-                       sw_abs: Optional[torch.Tensor] = None) -> DayResult:
+                       sw_abs: Optional[torch.Tensor] = None,
+                       focus_idx: Optional[int] = None) -> DayResult:
     """The same day as :func:`hydrology_day_plain`, as ONE launch of the
     CUDA day kernel (``csrc/day_kernel.cu``) on the current stream, and
     nothing else on the device: no transpose, no copy, no small kernel.
+    With ``focus_idx`` the thread of that cell also writes its water table
+    after each substep into ``wt_substeps``, a runtime argument of the
+    same instance: every other output is bitwise that of the day without.
 
     The kernel takes the state as the model holds it: layered fields
     ``[n, nl]``, contiguous or slab views ``x[lo:hi]`` (see
@@ -256,6 +269,9 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
     if n < 1 or nisurf < 1 or zd09_every < 1:
         raise ValueError(f"day kernel: n={n}, nisurf={nisurf}, "
                          f"zd09_every={zd09_every} must all be >= 1")
+    if focus_idx is not None and not 0 <= focus_idx < n:
+        raise ValueError(f"day kernel: focus_idx={focus_idx} is not a cell "
+                         f"of {n}")
     if (len(geom.zi), len(geom.dz_soil), len(geom.zc_soil)) != \
             (nl + 2, nl, nl):
         raise ValueError(f"day kernel: geometry does not have nl={nl}")
@@ -276,6 +292,8 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
     outs = [torch.empty((n, nl), dtype=dtype, device=device)
             for _ in range(2)] + \
            [torch.empty((n,), dtype=dtype, device=device) for _ in range(6)]
+    wt = (None if focus_idx is None else
+          torch.empty((nisurf,), dtype=dtype, device=device))
     geom_host = np.asarray(geom.zi + geom.dz_soil + geom.zc_soil,
                            dtype=np.float64)
     in_ptrs = (ctypes.c_void_p * len(ins))(
@@ -291,7 +309,8 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
         rc = lib.h9_hydrology_day(
             dtype.itemsize, nl, int(imp is not None), in_ptrs, in_strides,
             out_ptrs, n, grid, nisurf, zd09_every, float(dt),
-            geom_host.ctypes.data, stream)
+            geom_host.ctypes.data, -1 if wt is None else int(focus_idx),
+            None if wt is None else wt.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"day kernel launch failed: CUDA error {rc}")
     launches += 1
@@ -299,21 +318,25 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
     h_new, smp_new, zwt, wa, evap, evap_grnd, rnf, max_res = outs
     new_soil = SoilState(h2osoi_liq=h_new, zwt=zwt, wa=wa, smp=smp_new,
                          h2osoi_liq_ma=soil.h2osoi_liq_ma)
-    return new_soil, dict(evap_day=evap, evap_grnd_day=evap_grnd,
-                          rnf_day=rnf, max_abs_residual=max_res)
+    diags = dict(evap_day=evap, evap_grnd_day=evap_grnd, rnf_day=rnf,
+                 max_abs_residual=max_res)
+    if wt is not None:
+        diags["wt_substeps"] = wt
+    return new_soil, diags
 
 
 def hydrology_day(soil: SoilState, veg: VegState, params: SoilParams,
                   forcing: Forcing, geom: Geometry, dt: float, nisurf: int,
                   imp: Optional[torch.Tensor] = None, zd09_every: int = 1,
                   use_kernel: Optional[bool] = None,
-                  sw_abs: Optional[torch.Tensor] = None) -> DayResult:
+                  sw_abs: Optional[torch.Tensor] = None,
+                  focus_idx: Optional[int] = None) -> DayResult:
     """One hydrology day: the CUDA kernel for CUDA tensors, the plain
     twin for CPU tensors.  ``use_kernel=True`` demands the kernel and
     raises on CPU tensors; ``use_kernel=False`` takes the twin."""
     day = _day_function(soil, use_kernel)
     return day(soil, veg, params, forcing, geom, dt, nisurf, imp=imp,
-               zd09_every=zd09_every, sw_abs=sw_abs)
+               zd09_every=zd09_every, sw_abs=sw_abs, focus_idx=focus_idx)
 
 
 def _day_function(soil: SoilState, use_kernel: Optional[bool]):
@@ -346,7 +369,8 @@ def hydrology_day_sharded(soil: SoilState, veg: VegState,
                           imp: Optional[torch.Tensor] = None,
                           zd09_every: int = 1,
                           sw_abs: Optional[torch.Tensor] = None,
-                          use_kernel: Optional[bool] = None) -> DayResult:
+                          use_kernel: Optional[bool] = None,
+                          focus_idx: Optional[int] = None) -> DayResult:
     """One hydrology day with the cell axis cut over a list of devices.
 
     ``devices`` stands where the JAX package's 1-D mesh stood: the cell
@@ -379,6 +403,8 @@ def hydrology_day_sharded(soil: SoilState, veg: VegState,
     unsharded and 1.61 ms for one slab (``chip_smoke.py``, winter state); slabs on
     different cards can overlap, since nothing here waits for a launch.
     A slab is a view ``x[lo:hi]`` that the kernel reads in place.
+    ``focus_idx`` goes, at its local index, to the one slab that holds
+    the cell, whose ``wt_substeps`` the result carries.
     """
     devices = [torch.device(d) for d in devices]
     home = soil.h2osoi_liq.device
@@ -394,11 +420,13 @@ def hydrology_day_sharded(soil: SoilState, veg: VegState,
         def cut(x):
             return x[lo:hi].to(dev)
 
+        local = (focus_idx - lo if focus_idx is not None
+                 and lo <= focus_idx < hi else None)
         results.append(day(
             soil.map(cut), veg.map(cut), params.map(cut), forcing.map(cut),
             geom, dt, nisurf, imp=None if imp is None else cut(imp),
             zd09_every=zd09_every,
-            sw_abs=None if sw_abs is None else cut(sw_abs)))
+            sw_abs=None if sw_abs is None else cut(sw_abs), focus_idx=local))
 
     def whole(parts):
         return torch.cat([x.to(home) for x in parts])
@@ -408,5 +436,9 @@ def hydrology_day_sharded(soil: SoilState, veg: VegState,
         f: whole([getattr(s, f) for s in soils])
         for f in ("h2osoi_liq", "zwt", "wa", "smp")},
         h2osoi_liq_ma=soil.h2osoi_liq_ma)
+    traces = [r[1].pop("wt_substeps") for r in results
+              if "wt_substeps" in r[1]]
     diags = {k: whole([r[1][k] for r in results]) for k in results[0][1]}
+    if traces:
+        diags["wt_substeps"] = traces[0].to(home)
     return new_soil, diags

@@ -1,29 +1,46 @@
-"""Simulation set-up: what ``Config`` means for the day step.
+"""Simulation driver: years of forcing blocks with annual diagnostics.
 
-Port of ``hybrid9_tpu/run.py::Simulation.__init__`` and
-``step_kwargs``: geometry, the initial state, the routing network
-assembled for the dense kinematic router, the snow parameters, and the
-keyword arguments that make ``step.day_step`` / ``block_step`` run the
-configured physics.  The year loop with forcing providers, output,
-checkpoints and the focus-cell writer is not ported yet (ROADMAP A6), nor
-a persistently sharded state (ROADMAP A9).
+Port of ``hybrid9_tpu/run.py``, the replacement for the reference's main
+loop nest (SOURCE/HYBRID9.f90:87-332, PROGRAM H9): decade -> cell ->
+year -> day becomes year -> forcing block -> day over all cells.  Set-up
+(geometry, the initial state, the routing network for the dense
+kinematic router, the snow parameters, the focus cell) and the keyword
+arguments that make ``step.day_step`` / ``block_step`` run the configured
+physics; ``run_year`` streams forcing block by block, ``run`` writes the
+annual files and checkpoints.  A persistently sharded state waits for
+ROADMAP A9.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import time
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from . import calendar
 from .config import Config
 from .grids.grid import LandGrid
 from .grids.routing import direction_codes, flow_length_m, load_network
+from .io.writer import FocusCSVWriter, to_host
 from .physics.hydrology import Geometry
 from .physics.routing import GridKinematicParams, GridRouting
 from .physics.snow import SnowParams
-from .state import ModelState, SoilParams, initial_state
-from .step import waits
+from .state import AnnualAccumulators, Forcing, ModelState, SoilParams, \
+    initial_state
+from .step import annual_means, block_step, waits
+from .utils.logging import get_logger
+
+log = get_logger(__name__)
+
+#: The log lines of a year and of its output, which tools may read by
+#: their arguments: (year, days, seconds, cell-days/s, seconds waiting on
+#: forcing, max |residual| mm) and (year, output seconds, checkpoint
+#: seconds).
+YEAR_LOG = ("year %d: %d days in %.2fs (%.0f cell-days/s), forcing wait "
+            "%.3fs, max|residual|=%.3g mm")
+OUTPUT_LOG = "year %d: output %.3fs, checkpoint %.3fs"
 
 
 def resolve_device(device) -> torch.device:
@@ -45,7 +62,11 @@ class Simulation:
     ``params`` (and ``state``, when given) say where the run lives: every
     tensor made here goes to their device.  ``devices`` optionally names
     the devices whose slabs of cells the hydrology day runs on
-    (``hydrology_day_sharded``).
+    (``hydrology_day_sharded``).  With ``cfg.interactive`` and a
+    ``land_grid``, the land cell nearest ``(site_lon, site_lat)`` is the
+    focus cell whose daily rows go to ``focus_daily.csv`` and
+    ``focus_wt.csv`` (the reference's single-point debug mode,
+    INIT.f90:220-236, HYBRID9.f90:221-229).
     """
 
     def __init__(self, cfg: Config, params: SoilParams,
@@ -103,7 +124,19 @@ class Simulation:
             if cfg.snow_albedo:
                 self.snow_albedo = (float(cfg.snow_alpha),
                                     float(cfg.snow_masking_swe))
+        self.focus_idx = None
+        self.focus_writer = None
+        if cfg.interactive and land_grid is not None:
+            self.focus_idx = land_grid.cell_index_of(cfg.site_lon,
+                                                     cfg.site_lat)
+            self.focus_writer = FocusCSVWriter(cfg.output_path)
+            log.info("interactive focus cell: packed %d at (%.2f, %.2f)",
+                     self.focus_idx, cfg.site_lon, cfg.site_lat)
         self.n_land = land_grid.n_land if land_grid is not None else None
+        self.annual_results: List[Dict[str, np.ndarray]] = []
+        #: Per simulated year: wall seconds of the year, of waiting on
+        #: forcing, of the annual output and of the checkpoint.
+        self.timings: List[Dict[str, float]] = []
 
     def _grid_kinematic_routing(self, land_grid: LandGrid) -> GridRouting:
         """The synthetic D8 network as the dense kinematic router's
@@ -142,3 +175,125 @@ class Simulation:
             devices=self.devices, zd09_every=cfg.zd09_every,
             snow_albedo=self.snow_albedo,
             carbon=cfg.carbon and cfg.vegetation)
+
+    def run_year(self, year: int,
+                 forcing_provider: Callable[[int, int, int], Forcing],
+                 block_days: Optional[int] = None
+                 ) -> Dict[str, np.ndarray]:
+        """Simulate one calendar year; returns the annual means as numpy.
+
+        ``forcing_provider(year, start_doy, n_days)`` returns a ``Forcing``
+        of ``[n_days, n]`` tensors on the run's device (data/forcing.py).
+        Inside the year the host waits for the device only to copy the
+        focus rows of each block; the means come to the host in one copy
+        at its end, which closes the timed year.
+        """
+        cfg = self.cfg
+        ndays = calendar.days_in_year(year)
+        block_days = block_days or cfg.forcing_block_days
+        acc = AnnualAccumulators.zeros(self.n, self.dtype, self.device,
+                                       nsoil=self.grid.nsoil)
+        t0 = time.perf_counter()
+        wait = 0.0
+        doy = 1
+        # Double-buffered ingest: while the device integrates block k, a
+        # PrefetchingProvider builds block k+1 (on the last block, next
+        # year's first) on its thread.
+        prefetch = getattr(forcing_provider, "prefetch", None)
+        while doy <= ndays:
+            nblk = min(block_days, ndays - doy + 1)
+            if prefetch is not None:
+                if doy + nblk <= ndays:
+                    prefetch(year, doy + nblk,
+                             min(block_days, ndays - (doy + nblk) + 1))
+                elif year < cfg.end_year:
+                    prefetch(year + 1, 1,
+                             min(block_days, calendar.days_in_year(year + 1)))
+            tw = time.perf_counter()
+            block = forcing_provider(year, doy, nblk)
+            wait += time.perf_counter() - tw
+            out = block_step(self.state, acc, block, self.params, self.geom,
+                             cfg.dt, cfg.nisurf, focus_idx=self.focus_idx,
+                             **self.step_kwargs())
+            if self.focus_idx is not None:
+                self.state, acc, rows = out
+                if self.focus_writer is not None:
+                    self.focus_writer.append(year, doy, rows)
+            else:
+                self.state, acc = out
+            doy += nblk
+
+        means = to_host(annual_means(acc, cfg.nisurf))
+        elapsed = time.perf_counter() - t0
+        self._health_check(year, means)
+        # Land lanes only: padding lanes carry cell 0's forcing.
+        res_land = means["max_abs_residual"][:self._local_land_count()]
+        max_res = float(np.max(res_land)) if res_land.size else 0.0
+        log.info(YEAR_LOG, year, ndays, elapsed, self.n * ndays / elapsed,
+                 wait, max_res)
+        self.timings.append(dict(year=year, seconds=elapsed,
+                                 forcing_wait_s=wait))
+        self.annual_results.append(means)
+        return means
+
+    def _local_land_count(self) -> int:
+        """Number of real (non-padding) cells in the means: padding lanes
+        sit at the top of the packed axis."""
+        return self.n if self.n_land is None else int(self.n_land)
+
+    def _health_check(self, year: int, means: Dict[str, np.ndarray]
+                      ) -> None:
+        """Failure detection: NaN state or broken water balance.
+
+        The reference aborts the whole MPI job with the offending cell's
+        coordinates (HYDROLOGY.f90:1244-1274); here the worst cells are
+        logged with their packed indices and the run goes on: callers can
+        treat a logged error as fatal.
+        """
+        res = means["max_abs_residual"][:self._local_land_count()]
+        bad_nan = ~np.isfinite(res)
+        if np.any(bad_nan):
+            idx = np.flatnonzero(bad_nan)[:8]
+            log.error("year %d: NON-FINITE state in %d cells (packed "
+                      "idx %s)", year, int(bad_nan.sum()), idx.tolist())
+        worst = np.nanmax(res) if res.size else 0.0
+        if worst > 1.0:
+            i = int(np.nanargmax(res))
+            log.error("year %d: water-balance residual %.3g mm >> 0.1 mm "
+                      "at packed cell %d", year, float(worst), i)
+        elif worst > 0.1:
+            # Isolated float32 exceedances of the reference's 0.1 mm abort
+            # threshold occur at its "problem point" cells
+            # (driver.txt:34-59; DEVIATIONS.md).
+            i = int(np.nanargmax(res))
+            log.warning("year %d: water-balance residual %.3g mm > "
+                        "0.1 mm at packed cell %d", year, float(worst), i)
+
+    def run(self, forcing_provider, writer=None,
+            checkpointer=None) -> List[Dict[str, np.ndarray]]:
+        """Run [start_year, end_year], writing each year's annual file
+        (the reference's axy<year>.nc, HYBRID9.f90:492-519) with
+        ``writer`` and a checkpoint every ``checkpoint_every_years`` with
+        ``checkpointer``; closes the focus writer at the end."""
+        cfg = self.cfg
+        for year in range(cfg.start_year, cfg.end_year + 1):
+            means = self.run_year(year, forcing_provider)
+            t = self.timings[-1]
+            if writer is not None:
+                t0 = time.perf_counter()
+                writer.write_annual(year, means)
+                t["write_s"] = time.perf_counter() - t0
+            if (checkpointer is not None and cfg.checkpoint_every_years
+                    and (year - cfg.start_year + 1)
+                    % cfg.checkpoint_every_years == 0):
+                t0 = time.perf_counter()
+                checkpointer.save(year, self.state)
+                t["checkpoint_s"] = time.perf_counter() - t0
+            log.info(OUTPUT_LOG, year, t.get("write_s", 0.0),
+                     t.get("checkpoint_s", 0.0))
+        if checkpointer is not None:
+            checkpointer.wait()
+        if self.focus_writer is not None:
+            self.focus_writer.close()
+            self.focus_writer = None
+        return self.annual_results

@@ -6,12 +6,12 @@ the frozen-soil impedance (from the day-start state), the hydrology day
 physics/day_kernel.py), daily growth, routing of the day's runoff, the
 soil-heat column with the explicit phase change, and the soil-carbon
 cascade; ``block_step`` loops the day over a ``[days, n]`` forcing block
-and accumulates the annual sums (HYBRID9.f90:93-332).
+and accumulates the annual sums (HYBRID9.f90:93-332), and with a focus
+cell stacks that cell's daily diagnostic row (INTERACTIVE mode).
 
-Lateral groundwater, the hydrology-only mode, two-layer snow, the
-routers other than the dense kinematic one and the focus-cell trace are
-not ported yet; asking for one raises ``NotImplementedError`` naming its
-ROADMAP item.
+Lateral groundwater, the hydrology-only mode, two-layer snow and the
+routers other than the dense kinematic one are not ported yet; asking
+for one raises ``NotImplementedError`` naming its ROADMAP item (A5.6).
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def waits(what: str, item: str):
 
 
 def _not_ported(routing=None, lateral=None, snow=None,
-                vegetation: bool = True, focus_idx=None) -> None:
+                vegetation: bool = True) -> None:
     """Raise for a mode whose code is not ported yet."""
     if routing is not None and not isinstance(routing, GridRouting):
         waits(f"routing={type(routing).__name__} (only GridRouting is)",
@@ -65,9 +65,6 @@ def _not_ported(routing=None, lateral=None, snow=None,
               "A5.6 (two-layer snow)")
     if not vegetation:
         waits("vegetation=False", "A5.6 (hydrology-only mode)")
-    if focus_idx is not None:
-        waits(f"focus_idx={focus_idx!r}",
-              "A6 (focus-cell trace, year loop)")
 
 
 def day_step(state: ModelState, forcing: Forcing, params: SoilParams,
@@ -90,9 +87,13 @@ def day_step(state: ModelState, forcing: Forcing, params: SoilParams,
     temperature column without.  ``routing`` (a GridRouting) routes the
     day's runoff.  ``carbon`` runs the soil-carbon cascade.  ``devices``
     (a sequence of ``torch.device``) runs the hydrology day through
-    ``hydrology_day_sharded``, one slab of cells per entry.
+    ``hydrology_day_sharded``, one slab of cells per entry.  With
+    ``focus_idx`` the diagnostics carry ``wt_substeps``, that cell's
+    ``[nisurf]`` water table after each substep, written by the day
+    kernel itself (the JAX package ran a one-cell shadow of the day for
+    it).
     """
-    _not_ported(routing, lateral, snow, vegetation, focus_idx)
+    _not_ported(routing, lateral, snow, vegetation)
     swe = state.swe
     snow_capped = None
     # Snow-albedo feedback: absorptivity from the day-start pack.
@@ -115,7 +116,7 @@ def day_step(state: ModelState, forcing: Forcing, params: SoilParams,
 
     day_args = (state.soil, state.veg, params, forcing, geom, dt, nisurf)
     day_kw = dict(imp=imp, zd09_every=zd09_every, sw_abs=sw_abs,
-                  use_kernel=use_kernel)
+                  use_kernel=use_kernel, focus_idx=focus_idx)
     if devices is not None:
         soil, diags = hydrology_day_sharded(*day_args, devices=devices,
                                             **day_kw)
@@ -248,21 +249,56 @@ def _accumulate(acc: AnnualAccumulators, state: ModelState,
     )
 
 
+def _focus_row(state: ModelState, forcing: Forcing,
+               diags: Dict[str, torch.Tensor], dz_soil,
+               idx: int) -> Dict[str, torch.Tensor]:
+    """Daily diagnostic scalars of one focus cell, the analog of the
+    reference's INTERACTIVE per-day CSV line (HYBRID9.f90:221-229, header
+    INIT.f90:887-891) and water-table trace (HYDROLOGY.f90:509): 0-d
+    tensors on the run's device (``wt_substeps`` is ``[nisurf]``)."""
+    dz_sum = float(sum(dz_soil))
+    h_tot = torch.sum(state.soil.h2osoi_liq[idx])
+    return dict(
+        wt_substeps=diags["wt_substeps"],
+        tas=forcing.tas[idx], pr=forcing.pr[idx], rsds=forcing.rsds[idx],
+        evap=diags["evap_day"][idx], evap_grnd=diags["evap_grnd_day"][idx],
+        rnf=diags["rnf_day"][idx], discharge=diags["discharge"][idx],
+        npp=diags["npp"][idx], rh=diags["rh"][idx],
+        nee=diags["nee"][idx], zwt=state.soil.zwt[idx],
+        wa=state.soil.wa[idx], lai=state.veg.lai[idx],
+        plant_mass=state.veg.plant_mass[idx],
+        theta_mean=h_tot / (dz_sum * c.RHOW / 1.0e3),
+        t_surf=state.t_soil[idx, 0],
+        swe=state.swe[idx],
+        residual=diags["max_abs_residual"][idx],
+    )
+
+
 def block_step(state: ModelState, acc: AnnualAccumulators,
                forcing_block: Forcing, params: SoilParams, geom: Geometry,
                dt: float, nisurf: int, use_kernel=None,
-               zd09_every: int = 1, **extras
-               ) -> Tuple[ModelState, AnnualAccumulators]:
+               zd09_every: int = 1, focus_idx: Optional[int] = None,
+               **extras):
     """Run the day step over a ``[days, n]`` forcing block and accumulate
-    the annual sums.  Returns ``(state, acc)``.  ``extras`` are the other
+    the annual sums.  Returns ``(state, acc)``, and with ``focus_idx`` a
+    third element: the focus cell's rows (:func:`_focus_row`) stacked
+    over the block's days, on the run's device.  ``extras`` are the other
     keyword arguments of ``day_step`` (``Simulation.step_kwargs()``)."""
+    rows = []
     for d in range(forcing_block.tas.shape[0]):
         f_day = forcing_block.map(lambda x: x[d])
         state, diags = day_step(state, f_day, params, geom, dt, nisurf,
                                 use_kernel=use_kernel,
-                                zd09_every=zd09_every, **extras)
+                                zd09_every=zd09_every, focus_idx=focus_idx,
+                                **extras)
         acc = _accumulate(acc, state, f_day, diags, geom.dz_soil)
-    return state, acc
+        if focus_idx is not None:
+            rows.append(_focus_row(state, f_day, diags, geom.dz_soil,
+                                   focus_idx))
+    if focus_idx is None:
+        return state, acc
+    return state, acc, {k: torch.stack([r[k] for r in rows])
+                        for k in rows[0]}
 
 
 def annual_means(acc: AnnualAccumulators, nisurf: int

@@ -2,6 +2,7 @@
 
     python3 scripts/gpu_day_breakdown.py              # reference scope
     python3 scripts/gpu_day_breakdown.py --flagship   # Config() defaults
+    python3 scripts/gpu_day_breakdown.py --year       # the flagship year
 
 Reference scope (66,560 cells, float32): times the CUDA day kernel at
 zd09_every 8 and 1 (alternating), the whole ``day_step`` with the kernel,
@@ -19,6 +20,15 @@ whole day step are also timed on the initial state under the day-180
 forcing of ``build_flagship_case`` and under 1 January's, and the kernel
 day on the first 33,792 to 69,632 cells of it (one thread block more
 must not cost a round of blocks more).
+
+``--year`` (the flagship case through ``Simulation.run_year`` with
+``forcing="device-synthetic"``): three years in one process, the first
+and the later ones apart (seconds, forcing wait); the year loop's day
+(``block_step`` with its daily sums, on a 10-day block of on-card
+forcing) profiled: launches and device time per day; the on-card
+generator of a 365-day block timed on its own; and the host generator
+of the same block (``SyntheticForcingProvider.host_block``) and its copy
+to the card, each timed alone.
 
 Needs a CUDA device; prints the card's name and power limit beside the
 numbers.
@@ -228,11 +238,58 @@ def flagship(card: str) -> None:
           f"device (the rest is the daily sums and bookkeeping)")
 
 
+def year(card: str) -> None:
+    from hybrid9_tpu_torch.data.device_forcing import \
+        DeviceSyntheticForcingProvider
+    from hybrid9_tpu_torch.data.forcing import (SyntheticForcingProvider,
+                                                to_device)
+
+    case = build_flagship_case()
+    sim, grid = case.sim, case.land_grid
+    provider = DeviceSyntheticForcingProvider(sim.n, seed=0,
+                                              lat=grid.cell_lat)
+    for y in (1901, 1902, 1903):
+        sim.run_year(y, provider)
+    for t in sim.timings:
+        print(f"year {t['year']}: {t['seconds']:.3f} s, "
+              f"{sim.n * 365 / t['seconds']:.4g} cell-days/s, forcing wait "
+              f"{t['forcing_wait_s']:.3f} s ({card})")
+
+    block = provider(1904, 1, 10)
+    acc = AnnualAccumulators.zeros(sim.n, torch.float32, sim.device)
+
+    def days():
+        return step.block_step(sim.state, acc, block, sim.params, sim.geom,
+                               sim.cfg.dt, sim.cfg.nisurf,
+                               **case.step_kwargs)[0].soil.zwt
+
+    kernels, wall_ms = _profile(days, 1)
+    busy_ms = sum(e.device_time for e in kernels) / 1e3
+    print(f"profiled the year loop's day (block_step, 10 days): "
+          f"{wall_ms / 10:.3f} ms wall a day, device busy "
+          f"{busy_ms / 10:.3f} ms a day ({100 * busy_ms / wall_ms:.1f} %), "
+          f"{len(kernels) / 10:.0f} launches a day ({card})")
+    print(f"on-card generator, 365-day block: "
+          f"{_event_ms(lambda: provider(1904, 1, 365).tas, 3):.2f} ms")
+    host = SyntheticForcingProvider(sim.n, seed=0, lat=grid.cell_lat)
+    t0 = time.perf_counter()
+    arrays = host.host_block(1904, 1, 365)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    to_device(arrays, sim.device).tas.sum().item()
+    copy_s = time.perf_counter() - t0
+    mbytes = sum(a.nbytes for a in arrays.values()) / 1e6
+    print(f"host generator, 365-day block: {gen_s:.2f} s; pinned copy to "
+          f"the card {copy_s:.3f} s ({mbytes:.0f} MB)")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--flagship", action="store_true",
                         help="profile the flagship day instead of the "
                              "reference-scope day")
+    parser.add_argument("--year", action="store_true",
+                        help="time and profile the flagship year loop")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("gpu_day_breakdown: needs a CUDA device")
@@ -241,7 +298,10 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card)
-    (flagship if args.flagship else reference_scope)(card)
+    if args.year:
+        year(card)
+    else:
+        (flagship if args.flagship else reference_scope)(card)
 
 
 if __name__ == "__main__":

@@ -135,6 +135,31 @@ def assert_close(got, want, rtol, atol, what=""):
                                rtol=rtol, atol=atol, err_msg=what)
 
 
+def read_nc(path):
+    """A NetCDF-3 file as ``({name: (dimensions, units, float64 data)},
+    {dimension: length})``."""
+    from scipy.io import netcdf_file
+    with netcdf_file(str(path), "r", mmap=False) as f:
+        return ({k: (v.dimensions, getattr(v, "units", None),
+                     np.array(v[:], np.float64))
+                 for k, v in f.variables.items()}, dict(f.dimensions))
+
+
+def assert_same_grid_files(got_path, want_path, rtol, atol):
+    """Two annual or init files: the same variables, dimensions, units and
+    fill positions, and values within ``rtol``/``atol`` off the fill."""
+    got, got_dims = read_nc(got_path)
+    want, want_dims = read_nc(want_path)
+    assert got_dims == want_dims and set(got) == set(want)
+    for k, (dims, units, data) in want.items():
+        g_dims, g_units, g_data = got[k]
+        assert (g_dims, g_units) == (dims, units), k
+        fill = data >= 9.9e19
+        assert np.array_equal(g_data >= 9.9e19, fill), k
+        np.testing.assert_allclose(g_data[~fill], data[~fill], rtol=rtol,
+                                   atol=atol, err_msg=k)
+
+
 def assert_tree_close(got, want, rtol, atol, what=""):
     """Every leaf of two nested numpy dicts (see :func:`tree_np`)."""
     if isinstance(want, dict):

@@ -20,7 +20,9 @@ unsharded kernel for 1 and 4 slabs of a ragged cell count.  The kernel
 takes ragged cell counts around a warp and around the 0.5-degree grid,
 slab views ``x[lo:hi]`` without a copy (bitwise the same cells of the
 whole tensor's day), refuses views whose rows are not contiguous or not
-aligned, and two launches on the same inputs agree bitwise.
+aligned, and two launches on the same inputs agree bitwise.  With a
+focus cell the kernel writes that cell's water table after each substep
+(held against the twin's trace) and changes no other output.
 """
 
 import pytest
@@ -227,6 +229,66 @@ def test_sharded_flagship_block_is_bitwise_the_unsharded_block():
     _, want = _flagship_blocks(2)
     for x, y in zip(chip_smoke._state_leaves(got[0])
                     + chip_smoke._state_leaves(got[1]),
+                    chip_smoke._state_leaves(want[0])
+                    + chip_smoke._state_leaves(want[1])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,regime", chip_smoke.CHECK_REGIMES,
+                         ids=lambda x: str(x).replace("torch.", ""))
+def test_focus_trace_matches_the_twin(dtype, regime):
+    """The kernel's per-substep trace of a focus cell against the twin's
+    trace of that cell (off knife edges in float32), and every other
+    output bitwise the day without a focus, for cells in the first and
+    last warp and one past a warp boundary."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the day kernel has no CPU form")
+    dev = torch.device("cuda", 0)
+    n = 1023
+    soil, veg, params, forcing, geom, imp = chip_smoke.check_case(
+        n, 8, dtype, dev, regime)
+    args = (soil, veg, params, forcing, geom, 1800.0, 48)
+    kw = dict(imp=imp, zd09_every=8)
+    held = torch.ones(n, dtype=torch.bool, device=dev)
+    if regime != "reference" and dtype == torch.float32:
+        held = ~chip_smoke.knife_edge_cells(
+            *args[:5], day_kernel.hydrology_day_plain(*args, **kw), **kw)
+    cells = [0, 31, 32, 517, n - 1]
+    _, n_held = chip_smoke.check_focus(f"{regime} focus", args, kw, cells,
+                                       held)
+    assert n_held >= len(cells) - 1
+
+
+@pytest.mark.cuda
+def test_focus_outside_the_cells_is_refused():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the day kernel has no CPU form")
+    soil, veg, params, forcing, geom, _ = chip_smoke.check_case(
+        64, 8, torch.float32, torch.device("cuda"), "reference")
+    args = (soil, veg, params, forcing, geom, 1800.0, 48)
+    for bad in (-1, 64):
+        with pytest.raises(ValueError, match="focus_idx"):
+            day_kernel.hydrology_day_cuda(*args, focus_idx=bad)
+
+
+@pytest.mark.cuda
+def test_focus_rows_of_a_flagship_block_come_from_the_kernel():
+    """``block_step(focus_idx=...)`` on the card: one launch a day, the
+    rows' traces from the kernel, and the state bitwise the block run
+    without a focus."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the day kernel has no CPU form")
+    before = day_kernel.launches
+    sim, got = _flagship_blocks(2, focus_idx=7)
+    assert day_kernel.launches == before + 2
+    state, acc, rows = got
+    assert rows["wt_substeps"].shape == (2, sim.cfg.nisurf)
+    assert rows["wt_substeps"].is_cuda
+    assert torch.equal(rows["wt_substeps"][-1, -1], state.soil.zwt[7])
+    _, want = _flagship_blocks(2)
+    for x, y in zip(chip_smoke._state_leaves(state)
+                    + chip_smoke._state_leaves(acc),
                     chip_smoke._state_leaves(want[0])
                     + chip_smoke._state_leaves(want[1])):
         assert torch.equal(x, y)

@@ -267,7 +267,6 @@ def test_config_flagship_defaults_match_jax():
     (dict(routing_scheme="linear"), "A5.6"),
     (dict(routing_form="packed"), "A5.6"),
     (dict(lateral_groundwater=True), "A5.6"),
-    (dict(routing_network_path="net.nc"), "A6"),
 ], ids=lambda x: "-".join(map(str, x.values())) if isinstance(x, dict)
     else None)
 def test_config_switches_that_wait_raise(cfg_kw, item):
@@ -318,9 +317,9 @@ def test_entry_points_without_a_device_need_the_card(build):
 
 
 def test_run_imports_without_jax():
-    """``hybrid9_tpu_torch.run`` and the entry points load, and the
-    flagship case is built and stepped, in a process where importing JAX
-    or the JAX package fails."""
+    """Every module of the port and the entry points load, the flagship
+    case is built and stepped and the command line answers, in a process
+    where importing JAX or the JAX package fails."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -331,6 +330,19 @@ def test_run_imports_without_jax():
         "sys.meta_path.insert(0, Block())\n"
         "import hybrid9_tpu_torch.run, hybrid9_tpu_torch.entry\n"
         "import hybrid9_tpu_torch.weights, chip_smoke\n"
+        "import hybrid9_tpu_torch.calendar, hybrid9_tpu_torch.cli\n"
+        "import hybrid9_tpu_torch.data.forcing\n"
+        "import hybrid9_tpu_torch.data.device_forcing\n"
+        "import hybrid9_tpu_torch.data.soil_raw\n"
+        "import hybrid9_tpu_torch.io.checkpoint, hybrid9_tpu_torch.io.native\n"
+        "import hybrid9_tpu_torch.io.netcdf, hybrid9_tpu_torch.io.writer\n"
+        "import hybrid9_tpu_torch.utils.logging\n"
+        "import runpy\n"
+        "sys.argv = ['hybrid9_tpu_torch', 'info']\n"
+        "try:\n"
+        "    runpy.run_module('hybrid9_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
         "sys.path.insert(0, 'scripts')\n"
         "import gpu_day_breakdown\n"
         "from hybrid9_tpu_torch.step import day_step\n"

@@ -293,8 +293,11 @@ def test_route_grid_day_raises_on_params_it_does_not_have():
 
 
 def test_network_file_raises():
+    """A network or soil file that is not there raises; reading files
+    that are is in test_torch_io.py."""
     _, tg = _grids()
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        t_net.load_network(tg, "network.nc")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        t_soil.load_soil(Config(soil_source="netcdf"), T64, "cpu")
+    with pytest.raises(FileNotFoundError):
+        t_net.load_network(tg, "no_such_network.nc")
+    with pytest.raises(FileNotFoundError):
+        t_soil.load_soil(Config(soil_source="netcdf",
+                                soil_path="no_such_soil.nc"), T64, "cpu")

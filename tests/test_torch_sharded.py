@@ -82,6 +82,36 @@ def _ragged_case(dtype):
             case.cfg.dt, case.cfg.nisurf), kw
 
 
+@pytest.mark.parametrize("focus", [0, 100, N_RAGGED - 1])
+def test_sharded_day_routes_the_focus_to_its_slab(focus):
+    """The focus cell goes, at its local index, to the one slab that holds
+    it: the trace is the twin's on that slab alone, and the focus changes
+    no other output."""
+    args, kw = _ragged_case("float64")
+    soil, veg, params, forcing = args[:4]
+    devices = ["cpu"] * 3
+    got = day_kernel.hydrology_day_sharded(*args, devices=devices,
+                                           focus_idx=focus, **kw)
+    plain = _flat(day_kernel.hydrology_day_sharded(*args, devices=devices,
+                                                   **kw))
+    trace = got[1]["wt_substeps"]
+    assert trace.shape == (args[6],)
+    assert set(_flat(got)) == set(plain) | {"wt_substeps"}
+    for name, x in plain.items():
+        assert torch.equal(_flat(got)[name], x), name
+    (lo, hi), = [b for b in day_kernel.slab_bounds(N_RAGGED, 3)
+                 if b[0] <= focus < b[1]]
+
+    def cut(x):
+        return x[lo:hi]
+    alone = day_kernel.hydrology_day_plain(
+        soil.map(cut), veg.map(cut), params.map(cut), forcing.map(cut),
+        *args[4:], imp=cut(kw["imp"]), sw_abs=cut(kw["sw_abs"]),
+        zd09_every=8, focus_idx=focus - lo)
+    assert torch.equal(trace, alone[1]["wt_substeps"])
+    assert torch.equal(trace[-1], alone[0].zwt[focus - lo])
+
+
 def _flat(day):
     soil, diags = day
     return dict({f: getattr(soil, f) for f in SOIL_FIELDS}, **diags)

@@ -125,6 +125,40 @@ def test_block_step_and_annual_means_match_jax(dtype):
         assert_tree_close(got_means, want_means, 1e-5, 1e-5, "means")
 
 
+@pytest.mark.parametrize("zd09_every", [1, 8])
+def test_focus_rows_match_jax(zd09_every):
+    """``block_step(focus_idx=...)``'s rows, the per-substep water-table
+    trace among them, against JAX's ``_block_step`` with the same focus
+    (its XLA day, which records the trace in its scan) in float64; and
+    the focus changes nothing else, bit for bit."""
+    state, forcing, params, geom, cfg, t_st, t_f, t_p, t_geom = \
+        _jax_case("float64")
+    block = synthetic_forcing_block(3, N, seed=1, start_doy=152)
+    j_block = j_state.Forcing(**{k: jnp.asarray(v) for k, v in
+                                 block.items()})
+    focus = 37
+    _, _, want = jax.jit(_block_step, static_argnames=(
+        "geom", "dt", "nisurf", "zd09_every", "focus_idx"))(
+        state, j_state.AnnualAccumulators.zeros(N, dtype=jnp.float64),
+        j_block, params, geom=geom, dt=cfg.dt, nisurf=cfg.nisurf,
+        zd09_every=zd09_every, focus_idx=focus)
+    run = (t_st, t_state.AnnualAccumulators.zeros(N, torch.float64, "cpu"),
+           t_state.Forcing.from_numpy(block, torch.float64, "cpu"), t_p,
+           t_geom, cfg.dt, cfg.nisurf)
+    got_state, got_acc, got = block_step(*run, zd09_every=zd09_every,
+                                         focus_idx=focus)
+    got, want = tree_np(got), tree_np(want)
+    assert set(got) == set(want)
+    assert got["wt_substeps"].shape == (3, cfg.nisurf)
+    assert got["tas"].shape == (3,)
+    res = got.pop("residual"), want.pop("residual")
+    np.testing.assert_allclose(*res, rtol=1e-6, atol=1e-9)
+    assert_tree_close(got, want, 1e-9, 1e-9, "focus rows")
+    plain_state, plain_acc = block_step(*run, zd09_every=zd09_every)
+    assert_tree_close(tree_np((got_state, got_acc)),
+                      tree_np((plain_state, plain_acc)), 0, 0, "unfocused")
+
+
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_build_reference_case_matches_graft_entry(dtype):
     _, state, forcing, params, geom, cfg = ge._build(N, dtype)
@@ -156,13 +190,13 @@ def test_state_round_trips_through_numpy():
 
 @pytest.mark.parametrize("extra", [
     dict(routing=object()), dict(lateral=object()), dict(snow=object()),
-    dict(focus_idx=3), dict(vegetation=False)],
+    dict(vegetation=False)],
     ids=lambda e: next(iter(e)))
 def test_extras_not_ported_raise(extra):
     """What ``day_step`` still cannot run: routers other than the dense
     kinematic one, lateral groundwater, snow schemes other than the
-    degree-day one, the focus-cell trace and the hydrology-only mode.
-    (The flagship extras themselves are in test_torch_flagship.py.)"""
+    degree-day one and the hydrology-only mode.  (The flagship extras
+    themselves are in test_torch_flagship.py.)"""
     case = build_reference_case(8, "float32", "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         day_step(case.state, case.forcing, case.params, case.geom,
@@ -190,6 +224,12 @@ def test_port_never_imports_jax():
             "import hybrid9_tpu_torch.step, hybrid9_tpu_torch.entry\n"
             "import hybrid9_tpu_torch.run, hybrid9_tpu_torch.weights\n"
             "import hybrid9_tpu_torch.kernels, chip_smoke\n"
+            "import hybrid9_tpu_torch.cli, hybrid9_tpu_torch.calendar\n"
+            "import hybrid9_tpu_torch.data.forcing\n"
+            "import hybrid9_tpu_torch.data.device_forcing\n"
+            "import hybrid9_tpu_torch.data.soil_raw\n"
+            "import hybrid9_tpu_torch.io.checkpoint\n"
+            "import hybrid9_tpu_torch.io.writer\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'hybrid9_tpu'))\n"
             "print(bad)\n"
