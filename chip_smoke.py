@@ -77,7 +77,25 @@ non-zero:
    read back bitwise.  Each year's seconds, cell-days/s, forcing wait,
    output and checkpoint seconds, and the restore's, come from the
    run's own log records (``run.YEAR_LOG``, ``run.OUTPUT_LOG``,
-   ``cli.RESUME_LOG``).
+   ``cli.RESUME_LOG``);
+11. the switches of ``Config`` at full width (69,632 cells, the flagship
+   case's soil): hydrology-only, two-layer snow, lateral groundwater,
+   Muskingum-Cunge on the grid, the packed kinematic router and the
+   packed linear reservoir, each a 30-day block from 1 January through
+   ``block_step(**step_kwargs())``: one launch a day, finite state, the
+   residual, the switch seen at work (LAI and carbon unchanged; ``swe``
+   the pack total with liquid or cold content; a lateral exchange that
+   sums to zero over land; discharge and the routed water balance of one
+   day), the first 3 days against the plain twin, the packed blocks run
+   twice and bitwise equal, and ``day_step`` timed;
+12. the carbon spin-up through the command line (``run
+   --spinup-carbon 2``, on-card forcing): each rehearsal year's seconds,
+   max |d slow| and mean NEE from ``spinup.SPINUP_LOG``, 365 launches a
+   rehearsal year and in the year after;
+13. site mode through the command line (``site --engine kernel`` on the
+   card, 20 summer days at nisurf 48): the daily CSV against ``--engine
+   oracle`` (theta within 5e-3), and ms per site-day on the card and
+   with ``--device cpu``.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -114,9 +132,11 @@ from hybrid9_tpu_torch.io.netcdf import read_grid_file
 from hybrid9_tpu_torch.io.writer import ANNUAL_UNITS
 from hybrid9_tpu_torch.physics import constants as c
 from hybrid9_tpu_torch.physics import day_kernel
-from hybrid9_tpu_torch.run import OUTPUT_LOG, YEAR_LOG
 from hybrid9_tpu_torch.physics.hydrology import Geometry
+from hybrid9_tpu_torch.physics.lateral import lateral_groundwater_step
 from hybrid9_tpu_torch.physics.soiltemp import freeze_impedance_from_ice
+from hybrid9_tpu_torch.run import OUTPUT_LOG, YEAR_LOG, Simulation
+from hybrid9_tpu_torch.spinup import SPINUP_LOG
 from hybrid9_tpu_torch.state import (AnnualAccumulators, Forcing, SoilParams,
                                      initial_state)
 from hybrid9_tpu_torch.step import (annual_means, block_step, day_step,
@@ -724,6 +744,246 @@ def year_path(tmp, dev, smi, argv=(), **cfg_kw):
     return summary
 
 
+#: Phase 11's switches: name and the Config fields that turn it on.
+SWITCHES = (("hydrology_only", dict(vegetation=False)),
+            ("twolayer_snow", dict(snow_scheme="twolayer")),
+            ("lateral_groundwater", dict(lateral_groundwater=True)),
+            ("muskingum_grid", dict(routing_scheme="muskingum")),
+            ("kinematic_packed", dict(routing_form="packed")),
+            ("linear_packed", dict(routing_scheme="linear")))
+SPINUP_YEARS = 2
+SITE_DAYS = 20
+SITE_FIRST_DOY = 180          # summer: no snow, off the ZD09 knife edges
+
+
+def _at_work(name, sim, start, state, means, day):
+    """Phase 11's sign that switch ``name`` ran, on the state ``state``
+    and annual means ``means`` the 30-day block from ``start`` left and
+    one more ``day`` (its (state, diags)).  Returns what it saw."""
+    if name == "hydrology_only":
+        seen = dict(lai_unchanged=bool(torch.equal(state.veg.lai,
+                                                   start.veg.lai)),
+                    carbon_unchanged=bool(torch.equal(
+                        state.carbon.c_soil_slow, start.carbon.c_soil_slow)),
+                    max_rh=float(means["rh"].abs().max()),
+                    max_npp=float(means["npp"].abs().max()))
+        ok = (seen["lai_unchanged"] and seen["carbon_unchanged"]
+              and seen["max_rh"] == 0.0 and seen["max_npp"] == 0.0)
+    elif name == "twolayer_snow":
+        pack = state.snowpack
+        seen = dict(swe_is_pack_total=bool(torch.equal(
+                        state.swe, pack.swe_surf + pack.swe_base
+                        + pack.w_liq)),
+                    snow_cells=int((state.swe > 0).sum()),
+                    liquid_cells=int((pack.w_liq > 0).sum()),
+                    cold_cells=int((pack.t_surf < c.TF).sum()))
+        ok = (seen["swe_is_pack_total"] and seen["snow_cells"] > 0
+              and seen["liquid_cells"] + seen["cold_cells"] > 0)
+    elif name == "lateral_groundwater":
+        _, net = lateral_groundwater_step(state.soil.wa, state.soil.zwt,
+                                          sim.lateral)
+        land = net[:sim.n_land].double()
+        seen = dict(exchange_cells=int((land != 0).sum()),
+                    exchange_abs_sum_mm=float(land.abs().sum()),
+                    exchange_sum_mm=float(land.sum()))
+        ok = (seen["exchange_cells"] > 0 and abs(seen["exchange_sum_mm"])
+              <= 1e-5 * seen["exchange_abs_sum_mm"])
+    else:
+        seen, ok = {}, True
+    # Every path routes: discharge, and the routed water balance of one
+    # day over land.
+    new, d = day
+    land = slice(0, sim.n_land)
+    water = [x[land].double().sum() for x in (
+        new.river_store, state.river_store, d["discharge"], d["rnf_day"])]
+    balance = float(water[0] - water[1] + water[2] - water[3])
+    scale = float(water[1] + d["rnf_day"][land].double().abs().sum())
+    seen.update(annual_discharge_mm=float(means["discharge"].sum()),
+                routed_balance_mm=balance, routed_scale_mm=scale)
+    if not (ok and seen["annual_discharge_mm"] > 0.0
+            and abs(balance) <= 1e-5 * scale):
+        raise RuntimeError(f"switch {name}: not seen at work ({seen})")
+    return seen
+
+
+def switch_paths(flag, fblock, f31, smi, **cfg_kw):
+    """Phase 11: each of SWITCHES on ``Config()`` at full width (the
+    flagship case's soil and grid), a FLAGSHIP_DAYS block from 1 January
+    through ``block_step(**step_kwargs())`` with the kernel's count set
+    to 0 just before: one launch a day, finite state, the residual, the
+    switch at work; its first 3 days against the plain twin at the
+    kernel's tolerances; the packed routers' blocks run twice and held
+    bitwise; ``day_step`` timed on the state the block leaves.
+    ``cfg_kw`` is for rehearsals on a small grid.  Returns {name:
+    summary}."""
+    dev = fblock.tas.device
+    out = {}
+    for name, switch in SWITCHES:
+        t0 = time.perf_counter()
+        sim = Simulation(Config(**cfg_kw, **switch), flag.sim.params,
+                         land_grid=flag.land_grid)
+        set_up_s = time.perf_counter() - t0
+        n = sim.n
+        kw = sim.step_kwargs()
+        run = dict(params=sim.params, geom=sim.geom, dt=sim.cfg.dt,
+                   nisurf=sim.cfg.nisurf)
+        acc0 = AnnualAccumulators.zeros(n, torch.float32, dev)
+        day_kernel.launches = 0
+        t0 = time.perf_counter()
+        state, acc = block_step(sim.state, acc0, fblock, **run, **kw)
+        means = annual_means(acc, sim.cfg.nisurf)
+        torch.cuda.synchronize()
+        block_s = time.perf_counter() - t0
+        launches = day_kernel.launches
+        summary = check_block(f"switch {name}", state, means, FLAGSHIP_DAYS,
+                              launches)
+        day = day_step(state, f31, sim.params, sim.geom, sim.cfg.dt,
+                       sim.cfg.nisurf, **kw)
+        seen = _at_work(name, sim, sim.state, state, means, day)
+        short = fblock.map(lambda x: x[:3])
+        err = compare_blocks(
+            f"switch {name} vs plain twin, 3 days",
+            block_step(sim.state, acc0, short, **run, **kw),
+            block_step(sim.state, acc0, short, **run,
+                       **dict(kw, use_kernel=False)), sim.params.bsw)
+        repeat = None
+        if name.endswith("packed"):
+            again = block_step(sim.state, acc0, fblock, **run, **kw)
+            repeat = all(torch.equal(x, y) for x, y in zip(
+                _state_leaves(state) + _state_leaves(acc),
+                _state_leaves(again[0]) + _state_leaves(again[1])))
+            if not repeat:
+                raise RuntimeError(f"switch {name}: the block run twice is "
+                                   f"not bitwise the same")
+        step_ms, step_wall_ms = _time_cuda(
+            lambda: day_step(state, f31, sim.params, sim.geom, sim.cfg.dt,
+                             sim.cfg.nisurf, **kw)[0].soil.h2osoi_liq, 10)
+        out[name] = dict(launches=launches, block_s=block_s,
+                         set_up_s=set_up_s, max_abs_err_3_days=err,
+                         repeat_bitwise=repeat, day_step_ms=step_ms,
+                         day_step_wall_ms=step_wall_ms,
+                         router=type(sim.routing).__name__, **seen)
+        print(f"switch {name}: {FLAGSHIP_DAYS} days x {n} cells in "
+              f"{block_s:.2f} s (set-up {set_up_s:.1f} s), {summary}; vs "
+              f"plain twin, 3 days: max|diff| h2osoi {err:.3e} mm; "
+              f"day_step {step_ms:.3f} ms event, {step_wall_ms:.3f} ms wall "
+              f"({smi}); " + json.dumps(seen)
+              + ("" if repeat is None else "; repeated bitwise"))
+    return out
+
+
+class SpinupLog(logging.Handler):
+    """The spin-up's rehearsal years (``spinup.SPINUP_LOG``), each with
+    the day kernel's launch count when it was logged."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.years = []
+
+    def emit(self, record):
+        if record.msg == SPINUP_LOG:
+            year, of, dslow, nee, seconds = record.args
+            self.years.append(dict(year=year, of=of, max_dslow=dslow,
+                                   mean_nee=nee, seconds=seconds,
+                                   launches=day_kernel.launches))
+
+
+def spinup_path(tmp, smi, argv=(), **cfg_kw):
+    """Phase 12: ``cli.main(["run", "--spinup-carbon", ...])`` on
+    ``Config()`` at full width with on-card forcing: SPINUP_YEARS
+    rehearsal years, then the run's year; each rehearsal year is one
+    launch a day, and so is the year after.  Returns the phase's
+    summary."""
+    slog, ylog = SpinupLog(), YearLog()
+    logger = logging.getLogger("hybrid9_tpu_torch")
+    logger.addHandler(slog)
+    logger.addHandler(ylog)
+    try:
+        wall, launches, years, out = run_years(
+            tmp, "spinup", ylog, ["--spinup-carbon", str(SPINUP_YEARS),
+                                  *argv],
+            forcing="device-synthetic", start_year=YEARS[0],
+            end_year=YEARS[0], **cfg_kw)
+    finally:
+        logger.removeHandler(slog)
+        logger.removeHandler(ylog)
+    ndays = years[0]["days"] if years else 0
+    by_year, before = [], 0
+    for y in slog.years:
+        by_year.append(y["launches"] - before)
+        before = y["launches"]
+    by_year.append(launches - before)
+    if len(slog.years) != SPINUP_YEARS or by_year != [ndays] * (
+            SPINUP_YEARS + 1):
+        raise RuntimeError(f"spin-up path: launches by year {by_year}, "
+                           f"{len(slog.years)} rehearsal years")
+    for y in slog.years:
+        if not (np.isfinite(y["max_dslow"]) and np.isfinite(y["mean_nee"])):
+            raise RuntimeError(f"spin-up path: {y}")
+    init = read_grid_file(os.path.join(out, "init_diagnostics.nc"),
+                          ["land_mask", "theta_s"])
+    check_annual_file("spin-up path", os.path.join(out, f"axy{YEARS[0]}.nc"),
+                      init["land_mask"] == 1.0, init["theta_s"])
+    summary = dict(launches=launches, launches_by_year=by_year,
+                   rehearsal_years=slog.years, run_year=years[0],
+                   wall_s=wall)
+    print(f"spin-up path ({smi}): " + json.dumps(summary))
+    return summary
+
+
+def site_path(tmp, smi, device_argv=()):
+    """Phase 13: ``cli.main(["site", "--engine", "kernel", ...])`` on the
+    card (``device_argv`` empty) over SITE_DAYS summer days of the default
+    site's synthetic climate written here as a CSV, nisurf 48; its daily
+    CSV against ``--engine oracle`` at tests/test_site_kernel.py's
+    float32 tolerance (theta within 5e-3); then the kernel engine on the
+    CPU for its time.  Returns the phase's summary."""
+    clim = os.path.join(tmp, "site_climate.csv")
+    keys = ("tas", "rlds", "rsds", "huss", "ps", "pr", "rhs")
+    with open(clim, "w") as f:
+        f.write(",".join(keys) + "\n")
+        for d in range(SITE_FIRST_DOY, SITE_FIRST_DOY + SITE_DAYS):
+            day = synthetic_forcing_day(1, d, seed=17,
+                                        lat=np.array([Config().site_lat]))
+            f.write(",".join(repr(float(day[k][0])) for k in keys) + "\n")
+    rows, secs = {}, {}
+    for label, argv in (("kernel", ["--engine", "kernel", *device_argv]),
+                        ("oracle", ["--engine", "oracle"]),
+                        ("kernel_cpu", ["--engine", "kernel", "--device",
+                                        "cpu"])):
+        path = os.path.join(tmp, f"site_{label}.csv")
+        t0 = time.perf_counter()
+        rc = cli.main(["site", "--climate", clim, "--nisurf", "48",
+                       "--csv-out", path, *argv])
+        secs[label] = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"site path {label}: exit code {rc}")
+        with open(path) as f:
+            header = f.readline().strip().split(",")
+            rows[label] = np.array([r.split(",") for r in
+                                    f.read().splitlines()], np.float64)
+    theta = [header.index(f"theta{i}") for i in range(1, 5)]
+    worst = {}
+    for label in ("kernel", "kernel_cpu"):
+        got = rows[label]
+        if got.shape != (SITE_DAYS, len(header)) or \
+                not np.isfinite(got).all():
+            raise RuntimeError(f"site path {label}: rows {got.shape}")
+        worst[label] = float(np.abs(got[:, theta]
+                                    - rows["oracle"][:, theta]).max())
+        if not worst[label] < 5e-3:
+            raise RuntimeError(f"site path {label}: theta off the oracle by "
+                               f"{worst[label]}")
+    summary = dict(days=SITE_DAYS, nisurf=48,
+                   ms_per_site_day=secs["kernel"] / SITE_DAYS * 1e3,
+                   ms_per_site_day_cpu=secs["kernel_cpu"] / SITE_DAYS * 1e3,
+                   ms_per_site_day_oracle=secs["oracle"] / SITE_DAYS * 1e3,
+                   max_theta_err=worst["kernel"],
+                   max_theta_err_cpu=worst["kernel_cpu"])
+    print(f"site path ({smi}): " + json.dumps(summary))
+    return summary
+
+
 def main() -> None:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -1107,6 +1367,14 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         year = year_path(tmp, dev, smi)
 
+    # 11. The switches of Config at full width.
+    switches = switch_paths(flag, fblock, f31, smi)
+
+    # 12. The carbon spin-up, and 13. site mode, through the command line.
+    with tempfile.TemporaryDirectory() as tmp:
+        spin = spinup_path(tmp, smi)
+        site = site_path(tmp, smi)
+
     common = dict(route="cuda",
                   source="hybrid9_tpu_torch/csrc/day_kernel.cu",
                   bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
@@ -1122,6 +1390,12 @@ def main() -> None:
                             launches_by_year=[y["launches"]
                                               for y in year["years"]],
                             resumed_launches=year["resumed"]["launches"]),
+             switch_paths={k: v["launches"] for k, v in switches.items()},
+             switch_max_abs_err=max(v["max_abs_err_3_days"]
+                                    for v in switches.values()),
+             spinup_path=dict(launches=spin["launches"],
+                              launches_by_year=spin["launches_by_year"]),
+             site_ms_per_day=site["ms_per_site_day"],
              reference_path=dict(launches=ref_launches, max_abs_err=ref_err,
                                  ms=ref_kernel_ms, plain_ms=ref_plain_ms,
                                  cells=N_CELLS)),

@@ -5,14 +5,18 @@ driver.txt + slurm_submit launch path (EXECUTE/driver.txt;
 EXECUTE/slurm_submit):
 
     python -m hybrid9_tpu_torch run --config run.json [--years 1901 1910]
+    python -m hybrid9_tpu_torch run --config run.json --spinup-carbon 8
     python -m hybrid9_tpu_torch run --config run.json --device cpu
+    python -m hybrid9_tpu_torch site --csv-out site.csv [--spinup 10]
+    python -m hybrid9_tpu_torch site --engine kernel [--device cpu]
     python -m hybrid9_tpu_torch prep-soil --hwsd ... --bnu-dir ... --out ...
     python -m hybrid9_tpu_torch info
 
 ``run`` takes the JAX package's Config files (their TPU-only keys are
-dropped) and runs on the card unless ``--device`` names another.  The
-commands that are not ported yet (``site``, ``calibrate``, ``ensemble``,
-``assimilate``) are there and raise, naming their ROADMAP item.
+dropped) and runs on the card unless ``--device`` names another, as does
+``site --engine kernel``.  The commands that are not ported yet
+(``calibrate``, ``ensemble``, ``assimilate``) are there and raise,
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import time
 
 import torch
 
+from .site import DEBUG_SITES
 from .step import waits
 from .utils.logging import get_logger
 
@@ -31,19 +36,6 @@ log = get_logger(__name__)
 
 #: The log line of a resumed run: (checkpoint year, seconds to restore).
 RESUME_LOG = "resumed from checkpoint year %d in %.3fs"
-
-#: Named focus sites for ``run --focus`` (a copy of the JAX package's
-#: ``site.DEBUG_SITES``): (lon, lat).
-DEBUG_SITES = {
-    "vaira": (-120.95, 38.41),          # Vaira Ranch, CA (LCLIM site)
-    "sarawak": (114.0, 2.5),            # Borneo rainforest
-    "kalahari": (21.5, -23.0),          # semi-arid (NISURF stability site)
-    "cambridge": (0.1, 52.2),           # temperate maritime
-    "harvard_forest": (-72.17, 42.54),  # temperate deciduous
-    "sahara": (10.0, 23.0),             # hyper-arid
-    "indonesia": (117.0, 0.5),          # humid tropics
-}
-
 
 def _config(args: argparse.Namespace):
     """The run's Config: ``--config`` (or the defaults), with ``--years``
@@ -94,8 +86,6 @@ def cmd_run(args: argparse.Namespace) -> int:
 
     if args.shard:
         waits("run --shard", "A9 (multi-device)")
-    if args.spinup_carbon:
-        waits("run --spinup-carbon", "A7 (site mode and spin-up)")
     cfg = _config(args)
     device = resolve_device(args.device)
     dtype = getattr(torch, cfg.dtype)
@@ -116,6 +106,13 @@ def cmd_run(args: argparse.Namespace) -> int:
             # INIT (psi_s.nc INIT.f90:686-689; chunk.nc/soil_tex.nc
             # INIT.f90:823-835).
             write_init_diagnostics(cfg.output_path, grid, params)
+        if args.spinup_carbon:
+            # Equilibrate the carbon and vegetation pools under the start
+            # year's repeated climate before the run (spinup.py).
+            from .spinup import spinup_carbon
+            rep = spinup_carbon(sim, provider, max_loops=args.spinup_carbon,
+                                tol_slow=args.spinup_tol)
+            log.info("carbon spin-up: %s", rep)
         writer = (AnnualWriter(cfg.output_path, grid) if cfg.write_annual
                   else None)
         checkpointer = (Checkpointer(cfg.checkpoint_path)
@@ -125,6 +122,46 @@ def cmd_run(args: argparse.Namespace) -> int:
         close = getattr(provider, "close", None)
         if close is not None:
             close()
+    return 0
+
+
+def cmd_site(args: argparse.Namespace) -> int:
+    from .config import Config
+    from .site import (VAIRA_LAI_WAYPOINTS, read_lclim_daily_csv,
+                       read_lclim_subdaily_csv, read_site_climate_csv,
+                       read_site_subdaily_csv, run_site)
+
+    cfg = Config(spinup_years=args.spinup, nisurf=args.nisurf)
+    climate = None
+    lai_waypoints = None
+    grow = True
+    obs_daily = None
+    if args.lclim_daily:
+        # Reference-format positional LCLIM files (HYBRID9.f90:368-460),
+        # with the embedded Vaira LAI phenology: prescribed LAI turns
+        # growth off, as the reference's LCLIM mode does.
+        climate, obs_daily = read_lclim_daily_csv(args.lclim_daily)
+        if args.lclim_year and args.lclim_year in VAIRA_LAI_WAYPOINTS:
+            lai_waypoints = VAIRA_LAI_WAYPOINTS[args.lclim_year]
+            grow = False
+    elif args.climate:
+        climate = read_site_climate_csv(args.climate)
+    subdaily = None
+    if args.lclim_subdaily:
+        subdaily = read_lclim_subdaily_csv(args.lclim_subdaily,
+                                           cfg.nisurf)
+    elif args.subdaily:
+        subdaily = read_site_subdaily_csv(args.subdaily, cfg.nisurf)
+    result = run_site(cfg, climate=climate, subdaily=subdaily,
+                      lai_waypoints=lai_waypoints, grow=grow,
+                      csv_out=args.csv_out, engine=args.engine,
+                      evap_obs_daily=obs_daily,
+                      record_year_days=365 if args.noleap else None,
+                      device=args.device)
+    worst = max(r["max_residual"] for r in result.daily)
+    log.info("site run done (engine=%s): %d days, final LAI %.3f, "
+             "max|residual| %.3g mm", args.engine, len(result.daily),
+             result.daily[-1]["lai"], worst)
     return 0
 
 
@@ -177,8 +214,46 @@ def main(argv=None) -> int:
                     help="shard cells over processes (ROADMAP A9)")
     pr.add_argument("--spinup-carbon", type=int, default=0,
                     metavar="MAX_YEARS",
-                    help="carbon spin-up before the run (ROADMAP A7)")
+                    help="equilibrate the carbon and vegetation pools under "
+                         "the start year's repeated climate before the run "
+                         "(semi-analytic spin-up; needs Config.carbon)")
+    pr.add_argument("--spinup-tol", type=float, default=1.0,
+                    help="spin-up convergence: max |d slow pool| per "
+                         "rehearsal year, g C/m^2/yr")
     pr.set_defaults(fn=cmd_run)
+
+    ps = sub.add_parser("site", help="single-column site simulation")
+    ps.add_argument("--climate", help="daily climate CSV")
+    ps.add_argument("--subdaily",
+                    help="sub-daily observation CSV (doy, step, tak, rh, "
+                         "rnet, par, ppt, evap_obs)")
+    ps.add_argument("--lclim-daily",
+                    help="reference-format positional daily LCLIM file "
+                         "(doy, evap_obs, pr, tas, rh, huss, ps; "
+                         "HYBRID9.f90:368-379)")
+    ps.add_argument("--lclim-subdaily",
+                    help="reference-format positional 37-column "
+                         "sub-daily LCLIM file (HYBRID9.f90:426-460)")
+    ps.add_argument("--lclim-year", type=int, default=None,
+                    help="calendar year of the LCLIM record: selects "
+                         "the reference's embedded Vaira LAI phenology "
+                         "(2002/2003) and disables growth, as LCLIM "
+                         "mode does")
+    ps.add_argument("--csv-out", default="site_daily.csv")
+    ps.add_argument("--spinup", type=int, default=0)
+    ps.add_argument("--nisurf", type=int, default=48)
+    ps.add_argument("--noleap", action="store_true",
+                    help="the record uses a 365-day calendar (no leap "
+                         "days): roll the output (year, doy) labels by "
+                         "the record's own year length")
+    ps.add_argument("--engine", choices=("oracle", "kernel"),
+                    default="oracle",
+                    help="float64 numpy oracle, or the model's tensor "
+                         "code on one column")
+    ps.add_argument("--device", default=None,
+                    help="torch device of --engine kernel (default: the "
+                         "card; 'cpu' runs it on the CPU)")
+    ps.set_defaults(fn=cmd_site)
 
     pp = sub.add_parser("prep-soil",
                         help="preprocess raw HWSD/BNU soil archives")
@@ -199,8 +274,6 @@ def main(argv=None) -> int:
     pi.set_defaults(fn=cmd_info)
 
     for command, item, text in (
-            ("site", "A7 (site mode and spin-up)",
-             "single-column site simulation"),
             ("calibrate", "A8 (ensembles, DA and calibration)",
              "fit soil parameters to observed ET"),
             ("ensemble", "A8 (ensembles, DA and calibration)",

@@ -101,10 +101,7 @@ class Config:
     ``use_kernel`` selects the hand-written CUDA day kernel: None takes it
     exactly when the tensors are on a CUDA device, True demands it (and
     raises on CPU tensors), False takes the plain PyTorch twin
-    everywhere.  A switch whose code is not ported yet (two-layer snow,
-    the Muskingum and packed routers, lateral groundwater,
-    ``vegetation=False``: ROADMAP A5.6) is kept with its default and
-    raises ``NotImplementedError`` where it is read.
+    everywhere.
     """
 
     # --- Time stepping (driver.txt:2,4-5) ---------------------------------
@@ -132,7 +129,7 @@ class Config:
     interactive: bool = False         # Daily CSV of one focus cell.
     site_lon: float = -120.95         # Focus longitude (Vaira Ranch).
     site_lat: float = 38.41           # Focus latitude.
-    spinup_years: int = 0             # Spin-up repeats (site mode, A7).
+    spinup_years: int = 0             # Spin-up repeats (site mode).
 
     # --- Output / checkpointing -------------------------------------------
     output_path: str = "output"

@@ -6,12 +6,14 @@ land grid (steepest-descent neighbour on an elevation field, or a
 flow-direction or elevation file) mapped onto the packed cell axis (for
 every packed land cell, the packed index of its downstream cell, or
 ``n_padded``, a virtual ocean outlet, where the cell drains off-land),
-the hop lengths, and the dense direction codes of the roll stencil
-(physics/routing.py).  The Muskingum reach geometry and flow
-accumulation are not ported yet (ROADMAP A5.6).
+the hop lengths, the Muskingum-Cunge reach geometry (cell area, reach
+slope, drainage area, bankfull width) and the dense direction codes of
+the roll stencil (physics/routing.py).
 """
 
 from __future__ import annotations
+
+from collections import deque
 
 import numpy as np
 
@@ -102,6 +104,94 @@ def flow_length_m(grid: LandGrid, downstream: np.ndarray) -> np.ndarray:
     out[:n] = np.maximum(length, 1.0)
     return out.astype(np.float32)
 
+
+def cell_area_m2(grid: LandGrid) -> np.ndarray:
+    """Spherical cell area per packed cell ([n_padded], m^2).
+
+    Padding cells get 1 m^2 (never used — they hold no water).
+    """
+    ys = grid.land_idx // grid.nx
+    lat = grid.lat[ys]
+    res_m = grid.resolution_deg * _M_PER_DEG
+    area = res_m * res_m * np.cos(np.deg2rad(lat))
+    out = np.ones(grid.n_padded, np.float64)
+    out[:grid.n_land] = np.maximum(area, 1.0)
+    return out.astype(np.float32)
+
+
+def reach_slope(grid: LandGrid, downstream: np.ndarray,
+                elevation: np.ndarray | None = None, seed: int = 0
+                ) -> np.ndarray:
+    """Per-reach channel slope (elevation drop / hop length, [n_padded]).
+
+    For internal reaches the drop to the downstream cell; for
+    outlet-draining cells the drop to the elevation field's minimum (sea
+    level).  Clipped to [1e-5, 0.1]: the floor keeps the Manning velocity
+    finite on flats, the cap keeps headwater cliffs from a supersonic
+    celerity.  Pass the elevation (or seed) the network was built from,
+    so that drops are >= 0.
+    """
+    ny, nx, n = grid.ny, grid.nx, grid.n_land
+    if elevation is None:
+        land = np.zeros(ny * nx, bool)
+        land[grid.land_idx] = True
+        elevation = synthetic_elevation(land.reshape(ny, nx), seed)
+    ys = grid.land_idx // nx
+    xs = grid.land_idx % nx
+    here = elevation[ys, xs]
+    down = np.asarray(downstream[:n], np.int64)
+    internal = down < n
+    di = np.where(internal, down, 0)
+    yd, xd = grid.land_idx[di] // nx, grid.land_idx[di] % nx
+    drop = np.where(internal, here - elevation[yd, xd],
+                    here - elevation.min())
+    length = np.asarray(flow_length_m(grid, downstream)[:n], np.float64)
+    out = np.full(grid.n_padded, 1e-5)
+    out[:n] = np.clip(drop / length, 1e-5, 0.1)
+    return out.astype(np.float32)
+
+
+def flow_accumulation(grid: LandGrid, downstream: np.ndarray
+                      ) -> np.ndarray:
+    """Upstream-inclusive drainage area per cell ([n_padded], m^2): a
+    Kahn topological pass over the D8 graph (steepest descent cannot
+    cycle; file networks have their cycles broken on load).  Feeds the
+    channel width."""
+    n = grid.n_land
+    down = np.asarray(downstream[:n], np.int64)
+    acc = cell_area_m2(grid).astype(np.float64)
+    indeg = np.zeros(n, np.int64)
+    internal = down < n
+    np.add.at(indeg, down[internal], 1)
+    queue = deque(np.nonzero(indeg == 0)[0].tolist())
+    while queue:
+        i = queue.popleft()
+        d = down[i]
+        if d < n:
+            acc[d] += acc[i]
+            indeg[d] -= 1
+            if indeg[d] == 0:
+                queue.append(d)
+    return acc.astype(np.float32)
+
+
+def slope_from_accumulation(acc_area_m2: np.ndarray, k: float = 0.05,
+                            theta: float = 0.45) -> np.ndarray:
+    """Channel slope from drainage area by Flint's law, S = k * A^-theta
+    (A in km^2), for flow-direction files without a DEM: big rivers get
+    gentle slopes and headwaters steep ones.  Clipped to
+    :func:`reach_slope`'s [1e-5, 0.1]."""
+    a_km2 = np.maximum(np.asarray(acc_area_m2, np.float64) / 1.0e6, 1.0)
+    return np.clip(k * a_km2 ** (-theta), 1e-5, 0.1).astype(np.float32)
+
+
+def bankfull_width_m(acc_area_m2: np.ndarray, a: float = 0.5,
+                     w_min: float = 5.0, w_max: float = 3000.0
+                     ) -> np.ndarray:
+    """Channel width from drainage area by downstream hydraulic geometry
+    (w ~ a * sqrt(A), A in km^2), clipped to [w_min, w_max] m."""
+    a_km2 = np.asarray(acc_area_m2, np.float64) / 1.0e6
+    return np.clip(a * np.sqrt(a_km2), w_min, w_max).astype(np.float32)
 
 
 def build_downstream_index(grid: LandGrid,

@@ -3,8 +3,9 @@
 Port of ``hybrid9_tpu/run.py``, the replacement for the reference's main
 loop nest (SOURCE/HYBRID9.f90:87-332, PROGRAM H9): decade -> cell ->
 year -> day becomes year -> forcing block -> day over all cells.  Set-up
-(geometry, the initial state, the routing network for the dense
-kinematic router, the snow parameters, the focus cell) and the keyword
+(geometry, the initial state, the routing network and the router's
+operands, the lateral groundwater grid, the snow parameters, the focus
+cell) and the keyword
 arguments that make ``step.day_step`` / ``block_step`` run the configured
 physics; ``run_year`` streams forcing block by block, ``run`` writes the
 annual files and checkpoints.  A persistently sharded state waits for
@@ -22,11 +23,17 @@ import torch
 from . import calendar
 from .config import Config
 from .grids.grid import LandGrid
-from .grids.routing import direction_codes, flow_length_m, load_network
+from .grids.routing import (bankfull_width_m, cell_area_m2,
+                            direction_codes, flow_accumulation,
+                            flow_length_m, load_network, reach_slope,
+                            slope_from_accumulation)
 from .io.writer import FocusCSVWriter, to_host
 from .physics.hydrology import Geometry
-from .physics.routing import GridKinematicParams, GridRouting
-from .physics.snow import SnowParams
+from .physics.lateral import make_lateral_params
+from .physics.routing import (GridKinematicParams, GridMuskingumParams,
+                              GridRouting, KinematicParams, MuskingumParams,
+                              RoutingParams)
+from .physics.snow import SnowParams, TwoLayerSnowParams
 from .state import AnnualAccumulators, Forcing, ModelState, SoilParams, \
     initial_state
 from .step import annual_means, block_step, waits
@@ -107,20 +114,17 @@ class Simulation:
                 "routers; set routing_scheme='kinematic' or 'muskingum' "
                 f"(got {cfg.routing_scheme!r})")
         if cfg.lateral_routing and land_grid is not None:
-            if (cfg.routing_scheme, routing_form) != ("kinematic", "grid"):
-                waits(f"routing_scheme={cfg.routing_scheme!r} with "
-                      f"routing_form={routing_form!r}",
-                      "A5.6 (Muskingum-Cunge and the packed routers)")
-            self.routing = self._grid_kinematic_routing(land_grid)
-        if cfg.lateral_groundwater and land_grid is not None:
-            waits("lateral_groundwater=True", "A5.6 (lateral groundwater)")
+            self.routing = self._routing(land_grid, routing_form)
         self.lateral = None
+        if cfg.lateral_groundwater and land_grid is not None:
+            self.lateral = make_lateral_params(land_grid, self.device,
+                                               k_lat=cfg.lateral_k)
         self.snow = None
         self.snow_albedo = None
         if cfg.snow:
-            if cfg.snow_scheme == "twolayer":
-                waits("snow_scheme='twolayer'", "A5.6 (two-layer snow)")
-            self.snow = SnowParams(ddf=cfg.snow_ddf)
+            scheme = (TwoLayerSnowParams if cfg.snow_scheme == "twolayer"
+                      else SnowParams)
+            self.snow = scheme(ddf=cfg.snow_ddf)
             if cfg.snow_albedo:
                 self.snow_albedo = (float(cfg.snow_alpha),
                                     float(cfg.snow_masking_swe))
@@ -138,29 +142,73 @@ class Simulation:
         #: forcing, of the annual output and of the checkpoint.
         self.timings: List[Dict[str, float]] = []
 
-    def _grid_kinematic_routing(self, land_grid: LandGrid) -> GridRouting:
-        """The synthetic D8 network as the dense kinematic router's
-        operands on this run's device."""
+    def _routing(self, land_grid: LandGrid, routing_form: str):
+        """The router's operands on this run's device, for
+        ``cfg.routing_scheme`` in ``routing_form`` ("grid" or "packed"),
+        on the network of ``cfg.routing_network_path`` (the synthetic D8
+        network without one)."""
         cfg = self.cfg
-        down, _elev = load_network(land_grid, cfg.routing_network_path)
-        codes = direction_codes(land_grid, down)
-        length_g = land_grid.scatter(flow_length_m(land_grid, down),
-                                     fill=1.0)
+        down, elev = load_network(land_grid, cfg.routing_network_path)
+
+        def put(arr, dtype=None):
+            """A packed array as the JAX package holds it: the float32
+            geometry stays float32 and promotes in the arithmetic."""
+            return torch.tensor(np.asarray(arr), device=self.device,
+                                dtype=dtype)
+
+        def put_dense(packed, fill):
+            return put(land_grid.scatter(packed, fill=fill), self.dtype)
+
+        if routing_form == "grid":
+            codes = put(direction_codes(land_grid, down), torch.int32)
+            length = put_dense(flow_length_m(land_grid, down), 1.0)
+        else:
+            downstream = put(down, torch.int64)
+            length = put(flow_length_m(land_grid, down))
+        if cfg.routing_scheme == "muskingum":
+            acc = flow_accumulation(land_grid, down)
+            if elev is None and cfg.routing_network_path is not None:
+                # A flow-direction file without a DEM: synthetic
+                # elevation would give slopes unrelated to the real
+                # network, so take them from the drainage area.
+                log.warning("%s has no 'elevation': Muskingum reach slopes "
+                            "estimated from drainage area (Flint's law)",
+                            cfg.routing_network_path)
+                slope = slope_from_accumulation(acc)
+            else:
+                slope = reach_slope(land_grid, down, elevation=elev)
+            geometry = dict(n_substeps=cfg.routing_substeps,
+                            n_manning=cfg.routing_manning)
+            if routing_form == "packed":
+                return MuskingumParams(
+                    downstream=downstream, flow_length=length,
+                    slope=put(slope), width=put(bankfull_width_m(acc)),
+                    cell_area=put(cell_area_m2(land_grid)), **geometry)
+            params = GridMuskingumParams(
+                dir_code=codes, flow_length=length,
+                slope=put_dense(slope, 1.0e-3),
+                width=put_dense(bankfull_width_m(acc), 1.0),
+                cell_area=put_dense(cell_area_m2(land_grid), 1.0),
+                **geometry)
+        elif cfg.routing_scheme == "kinematic":
+            wave = dict(n_substeps=cfg.routing_substeps,
+                        c0=cfg.routing_celerity)
+            if routing_form == "packed":
+                return KinematicParams(downstream=downstream,
+                                       flow_length=length, **wave)
+            params = GridKinematicParams(dir_code=codes, flow_length=length,
+                                         **wave)
+        else:
+            return RoutingParams(downstream=downstream, k=cfg.routing_k)
         # Padding lanes point one past the dense grid; route_grid_day
         # scatters and gathers the land lanes only.
         flat_idx = np.full(self.n, land_grid.ny * land_grid.nx, np.int64)
         flat_idx[:land_grid.n_land] = land_grid.land_idx
-        return GridRouting(
-            params=GridKinematicParams(
-                dir_code=torch.tensor(codes, dtype=torch.int32,
-                                      device=self.device),
-                flow_length=torch.tensor(length_g, dtype=self.dtype,
-                                         device=self.device),
-                n_substeps=cfg.routing_substeps,
-                c0=cfg.routing_celerity),
-            flat_idx=torch.tensor(flat_idx, device=self.device),
-            n_land=int(land_grid.n_land), ny=int(land_grid.ny),
-            nx=int(land_grid.nx))
+        return GridRouting(params=params,
+                           flat_idx=torch.tensor(flat_idx,
+                                                 device=self.device),
+                           n_land=int(land_grid.n_land),
+                           ny=int(land_grid.ny), nx=int(land_grid.nx))
 
     def step_kwargs(self) -> Dict:
         """Keyword arguments configuring ``step.day_step`` (and

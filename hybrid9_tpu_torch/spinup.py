@@ -1,0 +1,180 @@
+"""Carbon equilibrium spin-up: the semi-analytic repeat-climate loop.
+
+Port of ``hybrid9_tpu/spinup.py``.  The soil-carbon pools start at fixed
+mid-latitude values, so a cold-started run reports a false carbon source
+or sink for decades (the slow pool turns over in 100 years).  Every
+decomposition flux is linear in its pool for a given modifier series
+(physics/carbon.py: ``d_pool = pool * min(k * mod, 1)``), so the periodic
+steady state under a repeated climate year follows pool by pool from one
+rehearsal year's integrated fluxes:
+
+    pool* = pool_end * (annual input to pool) / (annual output of pool)
+
+in cascade order (litter -> fast -> slow, each target input taken at the
+upstream pool's own steady state).  A few rehearsal years iterate out
+what remains nonlinear; convergence is checked on the slow pool and
+reported with the annual NEE.
+
+A rehearsal year is the run's own ``day_step`` (``Simulation.step_kwargs``:
+the kernel, snow, routing as configured) over forcing blocks, with the
+flux sums as ``[n]`` tensors on the run's device; the host reads the
+slow pool's drift, the NEE and the pool means once per rehearsal year.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from . import calendar
+from .physics.carbon import RESP_FAST, TO_FAST, TO_SLOW
+from .step import day_step
+from .utils.logging import get_logger
+
+log = get_logger(__name__)
+
+#: The log line of a rehearsal year: (year, of max years, max |d slow|
+#: g C/m^2/yr, mean NEE g C/m^2/yr, seconds).
+SPINUP_LOG = ("carbon spin-up year %d/%d: max|d slow| %.3g g C/m^2/yr, "
+              "mean NEE %.3g, %.3f s")
+
+#: Annual flux below which a pool's in/out ratio is degenerate
+#: (g C/m^2/yr).  Pools with no throughput are left as they are; pools
+#: that decay without input (deserts, permafrost) jump straight to their
+#: steady state of zero.
+_FLUX_FLOOR = 1.0e-6
+
+#: Accumulator name -> the day_step diagnostic it integrates.
+_DIAG_KEY = dict(
+    lit_in="c_lit_in", d_lit="c_d_lit", d_fast="c_d_fast",
+    d_slow="c_d_slow", nee="nee", npp="npp",
+    grow_pm="v_grow_pm", loss_pm="v_loss_pm",
+    grow_fm="v_grow_fm", loss_fm="v_loss_fm")
+
+
+def _spinup_block(state, sums, forcing_block, params, geom, dt, nisurf,
+                  **step_kwargs):
+    """The day step over a ``[days, n]`` forcing block, adding each day's
+    carbon-cycle turnover to ``sums`` (per-cell annual sums of the
+    diagnostics of :data:`_DIAG_KEY`).  Returns ``(state, sums)``."""
+    for d in range(forcing_block.tas.shape[0]):
+        state, diags = day_step(state, forcing_block.map(lambda x: x[d]),
+                                params, geom, dt, nisurf, **step_kwargs)
+        sums = {k: sums[k] + diags[_DIAG_KEY[k]] for k in sums}
+    return state, sums
+
+
+def _jump(pool, inflow, outflow, damping: float = 1.0):
+    """Scale ``pool`` by (in/out)**damping.  damping=1 is the exact
+    linear-pool fixed point; damping<1 relaxes in log space pools whose
+    jump feeds back on their forcing (vegetation -> LAI -> ET -> soil
+    moisture -> growth), where the undamped iteration can settle into a
+    period-2 cycle."""
+    ok = (outflow > _FLUX_FLOOR) & (inflow > _FLUX_FLOOR)
+    dead = (outflow > _FLUX_FLOOR) & ~(inflow > _FLUX_FLOOR)
+    ratio = inflow / torch.clamp(outflow, min=_FLUX_FLOOR)
+    if damping != 1.0:
+        ratio = ratio ** damping
+    return torch.where(ok, pool * ratio,
+                       torch.where(dead, torch.zeros_like(pool), pool))
+
+
+def _ratio_update(state, sums, spin_vegetation: bool = True):
+    """Jump each pool to its implied periodic steady state.  The cascade
+    targets use the steady-state upstream throughput: at equilibrium the
+    litter pool turns over exactly its input, so the fast pool's target
+    input is ``TO_FAST * lit_in``, and likewise for the slow pool.  With
+    ``spin_vegetation`` the plant pools jump too (growth is
+    mass-independent, GROW.f90:90-91, and the losses proportional,
+    GROW.f90:120-146), damped, with LAI scaled with the foliage pool."""
+    carbon = state.carbon
+    lit_in = sums["lit_in"]
+    fast_in = TO_FAST * lit_in
+    slow_in = (TO_SLOW + (1.0 - RESP_FAST) * TO_FAST) * lit_in
+    carbon = carbon.replace(
+        c_litter=_jump(carbon.c_litter, lit_in, sums["d_lit"]),
+        c_soil_fast=_jump(carbon.c_soil_fast, fast_in, sums["d_fast"]),
+        c_soil_slow=_jump(carbon.c_soil_slow, slow_in, sums["d_slow"]))
+    if not spin_vegetation:
+        return state.replace(carbon=carbon)
+    veg = state.veg
+    foliage = _jump(veg.plant_foliage_mass, sums["grow_fm"],
+                    sums["loss_fm"], damping=0.5)
+    f_ratio = foliage / torch.clamp(veg.plant_foliage_mass, min=1.0e-12)
+    veg = veg.replace(
+        plant_mass=_jump(veg.plant_mass, sums["grow_pm"],
+                         sums["loss_pm"], damping=0.5),
+        plant_foliage_mass=foliage,
+        lai=torch.clamp(veg.lai * f_ratio, min=0.001))
+    return state.replace(carbon=carbon, veg=veg)
+
+
+def spinup_carbon(sim, forcing_provider, year: Optional[int] = None,
+                  max_loops: int = 8, tol_slow: float = 1.0,
+                  block_days: Optional[int] = None,
+                  spin_vegetation: bool = True) -> Dict[str, float]:
+    """Equilibrate the carbon pools under a repeated climate year.
+
+    ``sim`` is a ``run.Simulation``, whose state is advanced in place
+    with its own physics configuration; ``forcing_provider`` as for
+    ``Simulation.run_year``; ``year`` the climate year to repeat
+    (``cfg.start_year`` by default); ``max_loops`` the budget of
+    rehearsal years; ``tol_slow`` the convergence threshold on the slow
+    pool's drift over one rehearsal year, max over land cells, g
+    C/m^2/yr; ``spin_vegetation`` also jumps the plant pools (needed for
+    the annual NEE to converge to about 0).
+
+    Returns a report: loops used, the final max |d slow| per year, the
+    final mean annual NEE (g C/m^2/yr) and the mean pools, over land.
+    """
+    cfg = sim.cfg
+    if not (cfg.carbon and cfg.vegetation):
+        raise ValueError("carbon spin-up needs Config.carbon and "
+                         "Config.vegetation enabled")
+    year = int(year if year is not None else cfg.start_year)
+    ndays = calendar.days_in_year(year)
+    block_days = block_days or cfg.forcing_block_days
+    kw = sim.step_kwargs()
+    land = slice(0, sim._local_land_count())
+    report: Dict[str, float] = {}
+    drift = float("inf")
+    loops = 0
+    for loop in range(max_loops):
+        t0 = time.perf_counter()
+        slow0 = sim.state.carbon.c_soil_slow
+        sums = {k: torch.zeros((sim.n,), dtype=sim.dtype, device=sim.device)
+                for k in _DIAG_KEY}
+        state = sim.state
+        doy = 1
+        while doy <= ndays:
+            nblk = min(block_days, ndays - doy + 1)
+            block = forcing_provider(year, doy, nblk)
+            state, sums = _spinup_block(state, sums, block, sim.params,
+                                        sim.geom, cfg.dt, cfg.nisurf, **kw)
+            doy += nblk
+        # The drift over the rehearsal year before the jump: how far from
+        # periodic the unaccelerated dynamics already are.  One host copy.
+        d_slow, nee = torch.stack([state.carbon.c_soil_slow - slow0,
+                                   sums["nee"]])[:, land].cpu().numpy()
+        drift = float(np.max(np.abs(d_slow))) if d_slow.size else 0.0
+        mean_nee = float(np.mean(nee)) if nee.size else 0.0
+        loops = loop + 1
+        sim.state = _ratio_update(state, sums,
+                                  spin_vegetation=spin_vegetation)
+        log.info(SPINUP_LOG, loops, max_loops, drift, mean_nee,
+                 time.perf_counter() - t0)
+        report = dict(loops=loops, max_dslow=drift, mean_nee=mean_nee)
+        if drift < tol_slow:
+            break
+    pools = sim.state.carbon
+    means = torch.stack([pools.c_litter, pools.c_soil_fast,
+                         pools.c_soil_slow])[:, land].cpu().numpy()
+    for k, v in zip(("mean_litter", "mean_fast", "mean_slow"), means):
+        report[k] = float(np.mean(v)) if v.size else 0.0
+    if drift >= tol_slow:
+        log.warning("carbon spin-up did not converge in %d years "
+                    "(max|d slow| %.3g > %.3g)", loops, drift, tol_slow)
+    return report

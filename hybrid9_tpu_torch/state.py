@@ -107,8 +107,8 @@ class VegState(_Tensors):
 
 @dataclasses.dataclass
 class SnowpackState(_Tensors):
-    """Two-layer snowpack prognostics; untouched by the degree-day
-    scheme (the two-layer scheme is not ported yet)."""
+    """Two-layer snowpack prognostics (physics/snow.py
+    ``snow_step_two_layer``); untouched by the degree-day scheme."""
 
     swe_surf: torch.Tensor   # [n] Surface-layer SWE (ice)          (mm)
     swe_base: torch.Tensor   # [n] Base-layer SWE (ice)             (mm)

@@ -9,9 +9,10 @@ cascade; ``block_step`` loops the day over a ``[days, n]`` forcing block
 and accumulates the annual sums (HYBRID9.f90:93-332), and with a focus
 cell stacks that cell's daily diagnostic row (INTERACTIVE mode).
 
-Lateral groundwater, the hydrology-only mode, two-layer snow and the
-routers other than the dense kinematic one are not ported yet; asking
-for one raises ``NotImplementedError`` naming its ROADMAP item (A5.6).
+The switches of ``Config`` choose the snow scheme (degree-day or two
+layers), the router (dispatched on its params type), the lateral
+groundwater exchange after routing and the hydrology-only mode
+(``vegetation=False``: no growth, no carbon).
 """
 
 from __future__ import annotations
@@ -26,8 +27,13 @@ from .physics.day_kernel import (hydrology_day, hydrology_day_plain,
                                  hydrology_day_sharded)
 from .physics.grow import grow_daily
 from .physics.hydrology import Geometry
-from .physics.routing import GridRouting, route_grid_day
-from .physics.snow import SnowParams, snow_step
+from .physics.lateral import LateralParams, lateral_groundwater_step
+from .physics.routing import (GridRouting, KinematicParams,
+                              MuskingumParams, RoutingParams, route_daily,
+                              route_grid_day, route_kinematic_day,
+                              route_muskingum_day)
+from .physics.snow import (SnowParams, TwoLayerSnowParams, snow_step,
+                           snow_step_two_layer)
 from .physics.soiltemp import (freeze_impedance, freeze_impedance_from_ice,
                                phase_change, soil_temperature_step)
 from .state import AnnualAccumulators, Forcing, ModelState, SoilParams
@@ -52,21 +58,6 @@ def waits(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
 
 
-def _not_ported(routing=None, lateral=None, snow=None,
-                vegetation: bool = True) -> None:
-    """Raise for a mode whose code is not ported yet."""
-    if routing is not None and not isinstance(routing, GridRouting):
-        waits(f"routing={type(routing).__name__} (only GridRouting is)",
-              "A5.6 (Muskingum-Cunge and the packed routers)")
-    if lateral is not None:
-        waits(f"lateral={lateral!r}", "A5.6 (lateral groundwater)")
-    if snow is not None and not isinstance(snow, SnowParams):
-        waits(f"snow={type(snow).__name__} (only SnowParams is)",
-              "A5.6 (two-layer snow)")
-    if not vegetation:
-        waits("vegetation=False", "A5.6 (hydrology-only mode)")
-
-
 def day_step(state: ModelState, forcing: Forcing, params: SoilParams,
              geom: Geometry, dt: float, nisurf: int,
              use_kernel=None, routing=None, lateral=None, snow=None,
@@ -79,13 +70,17 @@ def day_step(state: ModelState, forcing: Forcing, params: SoilParams,
     modules.  Returns the new state and the daily diagnostics
     (HYBRID9.f90:193-253).
 
-    ``use_kernel`` as in ``Config``.  ``snow`` (a SnowParams) runs the
-    daily snowpack, which reshapes the precipitation input; with it,
-    ``snow_albedo = (alpha_snow, swe_half)`` lowers the shortwave
-    absorptivity over the day-start pack.  ``freeze`` adds the frozen-soil
-    impedance, from the ice store with ``soil_ice`` and from yesterday's
-    temperature column without.  ``routing`` (a GridRouting) routes the
-    day's runoff.  ``carbon`` runs the soil-carbon cascade.  ``devices``
+    ``use_kernel`` as in ``Config``.  ``snow`` (a SnowParams or a
+    TwoLayerSnowParams) runs the daily snowpack, which reshapes the
+    precipitation input; with it, ``snow_albedo = (alpha_snow,
+    swe_half)`` lowers the shortwave absorptivity over the day-start
+    pack.  ``freeze`` adds the frozen-soil impedance, from the ice store
+    with ``soil_ice`` and from yesterday's temperature column without.
+    ``routing`` (GridRouting, RoutingParams, KinematicParams or
+    MuskingumParams) routes the day's runoff, and ``lateral`` (a
+    LateralParams) then exchanges aquifer water between cells.
+    ``vegetation=False`` keeps the vegetation as it is.  ``carbon`` runs
+    the soil-carbon cascade.  ``devices``
     (a sequence of ``torch.device``) runs the hydrology day through
     ``hydrology_day_sharded``, one slab of cells per entry.  With
     ``focus_idx`` the diagnostics carry ``wt_substeps``, that cell's
@@ -93,17 +88,24 @@ def day_step(state: ModelState, forcing: Forcing, params: SoilParams,
     kernel itself (the JAX package ran a one-cell shadow of the day for
     it).
     """
-    _not_ported(routing, lateral, snow, vegetation)
     swe = state.swe
+    snowpack = state.snowpack
     snow_capped = None
     # Snow-albedo feedback: absorptivity from the day-start pack.
     sw_abs = None
     if snow is not None and snow_albedo is not None:
         sw_abs = snow_absorptivity(state.swe, *snow_albedo)
-    if snow is not None:
+    if isinstance(snow, TwoLayerSnowParams):
+        snowpack, pr_eff, snow_capped = _two_layer_snow(swe, snowpack,
+                                                        forcing, snow)
+        swe = snowpack.swe_surf + snowpack.swe_base + snowpack.w_liq
+        forcing = forcing.replace(pr=pr_eff)
+    elif isinstance(snow, SnowParams):
         swe, pr_eff, _melt, snow_capped = snow_step(swe, forcing.tas,
                                                     forcing.pr, snow)
         forcing = forcing.replace(pr=pr_eff)
+    elif snow is not None:
+        raise TypeError(f"no snow scheme for {type(snow).__name__}")
     # Frozen-soil impedance, lagged like smp and constant across the
     # day's substeps.
     imp = None
@@ -122,11 +124,13 @@ def day_step(state: ModelState, forcing: Forcing, params: SoilParams,
                                             **day_kw)
     else:
         soil, diags = hydrology_day(*day_args, **day_kw)
-    veg, npp, litterfall, vflux = _grow(state.veg, soil, forcing, geom)
+    veg, npp, litterfall, vflux = _grow(state.veg, soil, forcing, geom,
+                                        vegetation)
     diags = dict(diags, npp=npp, **vflux)
     if snow_capped is not None:        # capped-pack ice runoff (mm)
         diags["rnf_day"] = diags["rnf_day"] + snow_capped
     river, diags = _route(state.river_store, diags, routing)
+    soil = _lateral(soil, lateral)
     t_soil, soil, ice = _soil_thermal(state, soil, params, forcing, geom,
                                       soil_ice, sw_abs)
     cstate, rh, nee, cflux = _carbon(state.carbon, vflux, litterfall,
@@ -136,14 +140,39 @@ def day_step(state: ModelState, forcing: Forcing, params: SoilParams,
     diags.update(cflux)
     return ModelState(soil=soil, veg=veg, river_store=river,
                       t_soil=t_soil, swe=swe, h2osoi_ice=ice,
-                      snowpack=state.snowpack, carbon=cstate), diags
+                      snowpack=snowpack, carbon=cstate), diags
 
 
-def _grow(veg, soil, forcing, geom):
-    """Daily vegetation update.  Returns ``(veg, npp, litterfall,
-    fluxes)``."""
-    return grow_daily(veg, soil.smp, forcing.tas, geom.zi,
-                      return_fluxes=True)
+def _two_layer_snow(swe, snowpack, forcing, snow):
+    """The two-layer snowpack's day.  ``swe`` is the water store across
+    scheme switches (the pack total while this scheme runs): the pack is
+    first scaled to it, so a degree-day checkpoint resumed under
+    "twolayer" banks its SWE in the base layer and a ``swe`` that shrank
+    cannot bring back stale pack water; when the scheme ran yesterday
+    this changes nothing.  Returns ``(pack, pr_eff, capped_mm)``."""
+    total = snowpack.swe_surf + snowpack.swe_base + snowpack.w_liq
+    scale = torch.where(total > 0.0,
+                        swe / torch.clamp(total, min=1.0e-12), 0.0)
+    snowpack = snowpack.replace(
+        swe_surf=snowpack.swe_surf * scale,
+        swe_base=snowpack.swe_base * scale
+        + torch.where(total > 0.0, 0.0, swe),
+        w_liq=snowpack.w_liq * scale)
+    snowpack, pr_eff, _melt, capped = snow_step_two_layer(
+        snowpack, forcing.tas, forcing.pr, snow)
+    return snowpack, pr_eff, capped
+
+
+def _grow(veg, soil, forcing, geom, vegetation: bool):
+    """Daily vegetation update, or in hydrology-only mode (BASELINE.json
+    config 2) none: LAI and roots keep their initial values, npp and
+    litterfall are 0 and the flux dict is empty.  Returns ``(veg, npp,
+    litterfall, fluxes)``."""
+    if vegetation:
+        return grow_daily(veg, soil.smp, forcing.tas, geom.zi,
+                          return_fluxes=True)
+    z = torch.zeros_like(veg.lai)
+    return veg, z, z, {}
 
 
 def _theta(h2osoi: torch.Tensor, dz_soil) -> torch.Tensor:
@@ -161,21 +190,40 @@ def _carbon(carbon_state, vflux, litterfall, t_soil, soil, params, geom,
     if not enabled:
         z = torch.zeros_like(litterfall)
         return carbon_state, z, z, {}
-    return carbon_daily(carbon_state, vflux["v_production"], litterfall,
-                        t_soil, _theta(soil.h2osoi_liq, geom.dz_soil),
+    production = (vflux["v_production"] if vflux
+                  else torch.zeros_like(litterfall))
+    return carbon_daily(carbon_state, production, litterfall, t_soil,
+                        _theta(soil.h2osoi_liq, geom.dz_soil),
                         params.theta_s, return_fluxes=True)
 
 
+#: The router of each routing params type (physics/routing.py).
+_ROUTERS = {GridRouting: route_grid_day, MuskingumParams: route_muskingum_day,
+            KinematicParams: route_kinematic_day, RoutingParams: route_daily}
+
+
 def _route(river_store, diags, routing):
-    """Daily routing of the day's runoff through the dense kinematic
-    router (physics/routing.py); without ``routing`` the store is
-    unchanged and discharge is 0."""
+    """Daily routing of the day's runoff by the router of ``routing``'s
+    type; without ``routing`` the store is unchanged and discharge is 0."""
     if routing is None:
         return river_store, dict(diags,
                                  discharge=torch.zeros_like(river_store))
-    new_store, discharge = route_grid_day(river_store, diags["rnf_day"],
-                                          routing)
+    route = _ROUTERS.get(type(routing))
+    if route is None:
+        raise TypeError(f"no router for {type(routing).__name__}")
+    new_store, discharge = route(river_store, diags["rnf_day"], routing)
     return new_store, dict(diags, discharge=discharge)
+
+
+def _lateral(soil, lateral):
+    """Daily groundwater exchange between cells (physics/lateral.py),
+    applied to the aquifer store."""
+    if lateral is None:
+        return soil
+    if not isinstance(lateral, LateralParams):
+        raise TypeError(f"no lateral exchange for {type(lateral).__name__}")
+    wa_new, _ = lateral_groundwater_step(soil.wa, soil.zwt, lateral)
+    return soil.replace(wa=wa_new)
 
 
 def _soil_thermal(state, soil_new, params, forcing, geom, soil_ice: bool,

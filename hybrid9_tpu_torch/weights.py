@@ -10,19 +10,44 @@ package hand every input over this way.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
 import torch
 
 from . import state as _state
-from .physics.routing import GridKinematicParams, GridRouting
-from .physics.snow import SnowParams
+from .physics.lateral import LateralParams
+from .physics.routing import (GridKinematicParams, GridMuskingumParams,
+                              GridRouting, KinematicParams, MuskingumParams,
+                              RoutingParams)
+from .physics.snow import SnowParams, TwoLayerSnowParams
 
 _TENSOR_CLASSES = {cls.__name__: cls for cls in (
     _state.ModelState, _state.SoilParams, _state.SoilState,
     _state.VegState, _state.SnowpackState, _state.CarbonState,
     _state.Forcing, _state.AnnualAccumulators)}
+
+_PARAMS_CLASSES = {cls.__name__: cls for cls in (
+    SnowParams, TwoLayerSnowParams, RoutingParams, KinematicParams,
+    MuskingumParams, GridKinematicParams, GridMuskingumParams,
+    LateralParams)}
+
+#: Index fields of the params classes and their dtypes.
+_INDEX_DTYPES = dict(downstream=torch.int64, land_flat_idx=torch.int64,
+                     dir_code=torch.int32)
+
+
+def _params(cls, fields: Mapping, device):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = np.asarray(fields[f.name])
+        if v.ndim == 0:               # a scalar, as its default's type
+            kw[f.name] = type(f.default)(v)
+        else:
+            kw[f.name] = torch.tensor(v, device=device,
+                                      dtype=_INDEX_DTYPES.get(f.name))
+    return cls(**kw)
 
 
 def from_reference(kind: str, fields: Mapping, dtype: torch.dtype, device):
@@ -33,29 +58,27 @@ def from_reference(kind: str, fields: Mapping, dtype: torch.dtype, device):
     ``kind`` is one of the state classes (``ModelState``, ``SoilParams``,
     ``SoilState``, ``VegState``, ``SnowpackState``, ``CarbonState``,
     ``Forcing``, ``AnnualAccumulators``: every array becomes a ``dtype``
-    tensor on ``device``), ``SnowParams`` (Python floats),
-    ``GridKinematicParams`` (``dir_code`` int32, ``flow_length`` in
-    ``dtype``, the scalars as they are) or ``GridRouting`` (``params`` a
-    nested ``GridKinematicParams`` mapping, ``flat_idx`` int64; the JAX
-    package's ``dense_sharding`` has no counterpart and is ignored).
+    tensor on ``device``); a params class (``SnowParams``,
+    ``TwoLayerSnowParams``, ``RoutingParams``, ``KinematicParams``,
+    ``MuskingumParams``, ``GridKinematicParams``, ``GridMuskingumParams``,
+    ``LateralParams``: index arrays become int64 tensors, ``dir_code``
+    int32, every other array keeps its dtype, so that geometry the JAX
+    package holds in float32 in a float64 run stays float32 and promotes
+    as it does there; scalars become Python numbers of the field's
+    default's type); or ``GridRouting`` (``params`` a nested mapping of
+    either dense params class, told apart by its ``slope`` field;
+    ``flat_idx`` int64; the JAX package's ``dense_sharding`` has no
+    counterpart and is ignored).
     """
     if kind in _TENSOR_CLASSES:
         return _TENSOR_CLASSES[kind].from_numpy(fields, dtype, device)
-    if kind == "SnowParams":
-        return SnowParams(**{k: float(v) for k, v in fields.items()})
-    if kind == "GridKinematicParams":
-        scalars = {k: float(fields[k])
-                   for k in ("c0", "s_ref", "beta", "c_min", "c_max")}
-        return GridKinematicParams(
-            dir_code=torch.tensor(np.asarray(fields["dir_code"]),
-                                  dtype=torch.int32, device=device),
-            flow_length=torch.tensor(np.asarray(fields["flow_length"]),
-                                     dtype=dtype, device=device),
-            n_substeps=int(fields["n_substeps"]), **scalars)
+    if kind in _PARAMS_CLASSES:
+        return _params(_PARAMS_CLASSES[kind], fields, device)
     if kind == "GridRouting":
+        inner = ("GridMuskingumParams" if "slope" in fields["params"]
+                 else "GridKinematicParams")
         return GridRouting(
-            params=from_reference("GridKinematicParams", fields["params"],
-                                  dtype, device),
+            params=from_reference(inner, fields["params"], dtype, device),
             flat_idx=torch.tensor(np.asarray(fields["flat_idx"]),
                                   dtype=torch.int64, device=device),
             n_land=int(fields["n_land"]), ny=int(fields["ny"]),

@@ -3,6 +3,7 @@
     python3 scripts/gpu_day_breakdown.py              # reference scope
     python3 scripts/gpu_day_breakdown.py --flagship   # Config() defaults
     python3 scripts/gpu_day_breakdown.py --year       # the flagship year
+    python3 scripts/gpu_day_breakdown.py --switches   # Config's switches
 
 Reference scope (66,560 cells, float32): times the CUDA day kernel at
 zd09_every 8 and 1 (alternating), the whole ``day_step`` with the kernel,
@@ -30,6 +31,14 @@ generator of a 365-day block timed on its own; and the host generator
 of the same block (``SyntheticForcingProvider.host_block``) and its copy
 to the card, each timed alone.
 
+``--switches`` (69,632 cells, float32, the flagship case's soil): for
+``Config()`` and each of its non-default switches (hydrology-only,
+two-layer snow, lateral groundwater, Muskingum-Cunge on the grid, the
+packed kinematic router, the packed linear reservoir), the ``day_step``
+on the winter state that 30 days from 1 January leave under that switch:
+its time by CUDA events, and profiled, its launches per day and the
+device-busy share.
+
 Needs a CUDA device; prints the card's name and power limit beside the
 numbers.
 """
@@ -37,6 +46,7 @@ numbers.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -48,12 +58,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from hybrid9_tpu_torch import step  # noqa: E402
+from hybrid9_tpu_torch.config import Config  # noqa: E402
 from hybrid9_tpu_torch.data.synthetic import (  # noqa: E402
     synthetic_forcing_block, synthetic_forcing_day)
 from hybrid9_tpu_torch.entry import (build_flagship_case,  # noqa: E402
                                      build_reference_case)
 from hybrid9_tpu_torch.physics import day_kernel  # noqa: E402
 from hybrid9_tpu_torch.physics.snow import snow_step  # noqa: E402
+from hybrid9_tpu_torch.run import Simulation  # noqa: E402
 from hybrid9_tpu_torch.physics.soiltemp import (  # noqa: E402
     freeze_impedance_from_ice)
 from hybrid9_tpu_torch.state import AnnualAccumulators, Forcing  # noqa: E402
@@ -197,7 +209,7 @@ def flagship(card: str) -> None:
     pr_eff = snow_step(winter.swe, forcing.tas, forcing.pr, sim.snow)[1]
     f_eff = forcing.replace(pr=pr_eff)
     _, _, litterfall, vflux = step._grow(winter.veg, new_state.soil, f_eff,
-                                         sim.geom)
+                                         sim.geom, True)
 
     def snow_and_impedance():
         step.snow_absorptivity(winter.swe, *sim.snow_albedo)
@@ -213,7 +225,7 @@ def flagship(card: str) -> None:
                 cfg.dt, cfg.nisurf, imp=imp, zd09_every=cfg.zd09_every,
                 sw_abs=sw_abs),
         "growth": lambda: step._grow(winter.veg, new_state.soil, f_eff,
-                                     sim.geom),
+                                     sim.geom, True),
         "routing": lambda: step._route(winter.river_store, diags,
                                        kw["routing"]),
         "soil heat + phase change": lambda: step._soil_thermal(
@@ -283,6 +295,45 @@ def year(card: str) -> None:
           f"the card {copy_s:.3f} s ({mbytes:.0f} MB)")
 
 
+SWITCHES = (("Config()", {}), ("hydrology_only", dict(vegetation=False)),
+            ("twolayer_snow", dict(snow_scheme="twolayer")),
+            ("lateral_groundwater", dict(lateral_groundwater=True)),
+            ("muskingum_grid", dict(routing_scheme="muskingum")),
+            ("kinematic_packed", dict(routing_form="packed")),
+            ("linear_packed", dict(routing_scheme="linear")))
+
+
+def switches(card: str) -> None:
+    case = build_flagship_case()
+    n, lat, dev = case.sim.n, case.land_grid.cell_lat, case.sim.device
+    block = Forcing.from_numpy(
+        synthetic_forcing_block(WINTER_DAYS, n, seed=1, start_doy=1,
+                                lat=lat), torch.float32, dev)
+    forcing = Forcing.from_numpy(
+        synthetic_forcing_day(n, 1 + WINTER_DAYS, seed=1, lat=lat),
+        torch.float32, dev)
+    rows = {}
+    for name, switch in SWITCHES:
+        sim = Simulation(Config(**switch), case.sim.params,
+                         land_grid=case.land_grid)
+        kw = sim.step_kwargs()
+        run = (sim.params, sim.geom, sim.cfg.dt, sim.cfg.nisurf)
+        winter, _ = step.block_step(
+            sim.state, AnnualAccumulators.zeros(n, torch.float32, dev),
+            block, *run, **kw)
+
+        def day():
+            return step.day_step(winter, forcing, *run, **kw)
+
+        ms = [_event_ms(day, 10) for _ in range(2)]
+        busy_ms, launches = _profile_day(f"day_steps, {name}", day, top=4)
+        rows[name] = dict(day_step_ms=ms, device_ms=busy_ms,
+                          launches=launches, busy_share=busy_ms / min(ms))
+        print(f"{name}: day_step {ms[0]:.3f}, {ms[1]:.3f} ms, {launches:.0f} "
+              f"launches a day, device busy {busy_ms:.3f} ms ({card})")
+    print("switches: " + json.dumps(rows))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--flagship", action="store_true",
@@ -290,6 +341,9 @@ def main() -> None:
                              "reference-scope day")
     parser.add_argument("--year", action="store_true",
                         help="time and profile the flagship year loop")
+    parser.add_argument("--switches", action="store_true",
+                        help="time and profile the flagship day under each "
+                             "non-default switch of Config")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("gpu_day_breakdown: needs a CUDA device")
@@ -298,7 +352,9 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card)
-    if args.year:
+    if args.switches:
+        switches(card)
+    elif args.year:
         year(card)
     else:
         (flagship if args.flagship else reference_scope)(card)

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -93,8 +94,10 @@ def columns(n: int, nl: int, seed: int) -> dict:
 
 
 def tree_np(x):
-    """A state dataclass (or dict, or tuple of them) of either package as
-    nested numpy dicts."""
+    """A state dataclass (or NamedTuple, dict, or tuple of them) of either
+    package as nested numpy dicts."""
+    if hasattr(x, "_asdict"):
+        return tree_np(x._asdict())
     if isinstance(x, tuple):
         return {str(i): tree_np(v) for i, v in enumerate(x)}
     if isinstance(x, dict):
@@ -245,3 +248,51 @@ def check_plain_day_against_xla(dtype, zd09_every, imp, nl):
         np.testing.assert_allclose(tree_np(got_diags["max_abs_residual"]),
                                    np.asarray(max_res), rtol=1e-6,
                                    atol=1e-9)
+
+
+#: The grid and substeps of the switch cases: 12 degrees, 4 substeps.
+SWITCH_GRID = dict(resolution_deg=12.0, cell_block=32, nisurf=4)
+
+
+def run_both(dtype, days=5, **switch):
+    """The same ``Config(**SWITCH_GRID, **switch)`` block of ``days`` days
+    from 1 January in both packages, from the same numpy soil and the
+    JAX initial state carried across.  Returns ``(jsim, sim, (state,
+    means) of JAX, (state, means) of the port, the forcing block)``."""
+    from hybrid9_tpu.config import Config as JConfig
+    from hybrid9_tpu.data.soil import load_soil as j_load_soil
+    from hybrid9_tpu.run import Simulation as JSimulation
+    from hybrid9_tpu.step import _BLOCK_STEP_STATIC, _block_step
+    from hybrid9_tpu.step import annual_means as j_annual_means
+    from hybrid9_tpu_torch.config import Config
+    from hybrid9_tpu_torch.data.soil import load_soil
+    from hybrid9_tpu_torch.data.synthetic import synthetic_forcing_block
+    from hybrid9_tpu_torch.run import Simulation
+    from hybrid9_tpu_torch.step import annual_means, block_step
+
+    kw = dict(SWITCH_GRID, dtype=dtype, **switch)
+    jcfg = JConfig(use_pallas=False, **kw)
+    jgrid, jparams = j_load_soil(jcfg, jnp.dtype(dtype))
+    jsim = JSimulation(jcfg, jparams, land_grid=jgrid)
+    cfg = Config(**kw)
+    td, jd = getattr(torch, dtype), jnp.dtype(dtype)
+    grid, params = load_soil(cfg, td, "cpu")
+    sim = Simulation(cfg, params, state=to_port(jsim.state, dtype),
+                     land_grid=grid)
+    block = synthetic_forcing_block(days, sim.n, seed=3, start_doy=1,
+                                    lat=grid.cell_lat)
+    want_state, want_acc = jax.jit(
+        _block_step, static_argnames=_BLOCK_STEP_STATIC)(
+        jsim.state, j_state.AnnualAccumulators.zeros(jsim.n, dtype=jd),
+        j_state.Forcing(**{k: jnp.asarray(v, jd) for k, v in block.items()}),
+        jsim.params, geom=jsim.geom, dt=jcfg.dt, nisurf=jcfg.nisurf,
+        **jsim.step_kwargs())
+    got_state, got_acc = block_step(
+        sim.state, t_state.AnnualAccumulators.zeros(sim.n, td, "cpu"),
+        t_state.Forcing.from_numpy(block, td, "cpu"), sim.params, sim.geom,
+        sim.cfg.dt, sim.cfg.nisurf, **sim.step_kwargs())
+    return (jsim, sim,
+            (tree_np(want_state),
+             tree_np(j_annual_means(want_acc, jcfg.nisurf))),
+            (tree_np(got_state), tree_np(annual_means(got_acc, cfg.nisurf))),
+            block)

@@ -100,8 +100,6 @@ def test_run_needs_the_card_unless_told(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["run", "--shard"], "A9"),
-    (["run", "--spinup-carbon", "3"], "A7"),
-    (["site", "--csv-out", "x.csv"], "A7"),
     (["calibrate", "--config", "c.json"], "A8"),
     (["ensemble", "--config", "c.json"], "A8"),
     (["assimilate", "--config", "c.json"], "A8"),

@@ -292,3 +292,62 @@ def test_focus_rows_of_a_flagship_block_come_from_the_kernel():
                     chip_smoke._state_leaves(want[0])
                     + chip_smoke._state_leaves(want[1])):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [s[0] for s in chip_smoke.SWITCHES])
+def test_switch_blocks_on_the_card(name):
+    """Each non-default switch on the 4-degree grid: three winter days
+    through ``block_step`` with one kernel launch a day, held against
+    the plain twin; the packed routers' blocks bitwise repeatable."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the day kernel has no CPU form")
+    from hybrid9_tpu_torch.config import Config
+    from hybrid9_tpu_torch.run import Simulation
+    switch = dict(chip_smoke.SWITCHES)[name]
+    case = build_flagship_case(resolution_deg=4.0)
+    sim = Simulation(Config(resolution_deg=4.0, **switch), case.sim.params,
+                     land_grid=case.land_grid)
+    n = sim.n
+    block = Forcing.from_numpy(
+        synthetic_forcing_block(3, n, seed=1, start_doy=1,
+                                lat=case.land_grid.cell_lat),
+        torch.float32, sim.device)
+    acc = AnnualAccumulators.zeros(n, torch.float32, sim.device)
+    run = (sim.params, sim.geom, sim.cfg.dt, sim.cfg.nisurf)
+    kw = sim.step_kwargs()
+    before = day_kernel.launches
+    got = block_step(sim.state, acc, block, *run, **kw)
+    assert day_kernel.launches == before + 3
+    want = block_step(sim.state, acc, block, *run,
+                      **dict(kw, use_kernel=False))
+    chip_smoke.compare_blocks(name, got, want, sim.params.bsw)
+    if name.endswith("packed"):
+        again = block_step(sim.state, acc, block, *run, **kw)
+        for x, y in zip(chip_smoke._state_leaves(got[0]),
+                        chip_smoke._state_leaves(again[0])):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_site_kernel_engine_on_the_card_matches_the_oracle():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from hybrid9_tpu_torch.config import Config
+    from hybrid9_tpu_torch.site import run_site
+    cfg = Config(nisurf=8, dtype="float64", zd09_every=1, snow=False)
+    from hybrid9_tpu_torch.data.synthetic import synthetic_forcing_day
+    from hybrid9_tpu_torch.physics import reference_column as ref
+    climate = [ref.DailyForcing(**{k: float(v[0]) for k, v in
+                                   synthetic_forcing_day(
+                                       1, d, seed=17,
+                                       lat=np.array([38.41])).items()})
+               for d in range(180, 184)]
+    kernel = run_site(cfg, climate=climate, engine="kernel")
+    assert kernel.state.soil.zwt.is_cuda
+    oracle = run_site(cfg, climate=climate, engine="oracle")
+    for key in ("evap_day", "theta1", "theta4", "lai", "w_i", "f_t"):
+        np.testing.assert_allclose([r[key] for r in kernel.daily],
+                                   [r[key] for r in oracle.daily],
+                                   rtol=1e-5, atol=1e-7, err_msg=key)

@@ -261,20 +261,6 @@ def test_config_flagship_defaults_match_jax():
 
 # --- what still waits -------------------------------------------------------
 
-@pytest.mark.parametrize("cfg_kw,item", [
-    (dict(snow_scheme="twolayer"), "A5.6"),
-    (dict(routing_scheme="muskingum"), "A5.6"),
-    (dict(routing_scheme="linear"), "A5.6"),
-    (dict(routing_form="packed"), "A5.6"),
-    (dict(lateral_groundwater=True), "A5.6"),
-], ids=lambda x: "-".join(map(str, x.values())) if isinstance(x, dict)
-    else None)
-def test_config_switches_that_wait_raise(cfg_kw, item):
-    grid, params = load_soil(Config(**GRID_KW), torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        Simulation(Config(**GRID_KW, **cfg_kw), params, land_grid=grid)
-
-
 def test_other_things_that_wait_raise():
     grid, params = load_soil(Config(**GRID_KW), torch.float32, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
@@ -286,13 +272,6 @@ def test_other_things_that_wait_raise():
     with pytest.raises(ValueError, match="CUDA"):
         Simulation(Config(use_kernel=True, **GRID_KW), params,
                    land_grid=grid)
-    sim = Simulation(Config(vegetation=False, **GRID_KW), params,
-                     land_grid=grid)
-    f = t_state.Forcing.from_numpy(
-        synthetic_forcing_day(sim.n, 180, seed=1), torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5.6"):
-        day_step(sim.state, f, sim.params, sim.geom, sim.cfg.dt,
-                 sim.cfg.nisurf, **sim.step_kwargs())
 
 
 # --- entry points and the card ----------------------------------------------
@@ -337,6 +316,9 @@ def test_run_imports_without_jax():
         "import hybrid9_tpu_torch.io.checkpoint, hybrid9_tpu_torch.io.native\n"
         "import hybrid9_tpu_torch.io.netcdf, hybrid9_tpu_torch.io.writer\n"
         "import hybrid9_tpu_torch.utils.logging\n"
+        "import hybrid9_tpu_torch.site, hybrid9_tpu_torch.spinup\n"
+        "import hybrid9_tpu_torch.physics.lateral\n"
+        "import hybrid9_tpu_torch.physics.reference_column\n"
         "import runpy\n"
         "sys.argv = ['hybrid9_tpu_torch', 'info']\n"
         "try:\n"

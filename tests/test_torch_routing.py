@@ -288,7 +288,7 @@ def test_route_grid_day_raises_on_params_it_does_not_have():
     bad = t_routing.GridRouting(params=object(), flat_idx=r_t.flat_idx,
                                 n_land=r_t.n_land, ny=r_t.ny, nx=r_t.nx)
     z = torch.zeros(r_t.flat_idx.shape[0], dtype=T64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5.6"):
+    with pytest.raises(TypeError, match="no dense router for object"):
         t_routing.route_grid_day(z, z, bad)
 
 

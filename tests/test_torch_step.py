@@ -189,21 +189,20 @@ def test_state_round_trips_through_numpy():
 
 
 @pytest.mark.parametrize("extra", [
-    dict(routing=object()), dict(lateral=object()), dict(snow=object()),
-    dict(vegetation=False)],
+    dict(routing=object()), dict(lateral=object()), dict(snow=object())],
     ids=lambda e: next(iter(e)))
 def test_extras_not_ported_raise(extra):
-    """What ``day_step`` still cannot run: routers other than the dense
-    kinematic one, lateral groundwater, snow schemes other than the
-    degree-day one and the hydrology-only mode.  (The flagship extras
-    themselves are in test_torch_flagship.py.)"""
+    """What ``day_step`` cannot run: a router, lateral exchange or snow
+    scheme of a params type the port does not have.  (The switches
+    themselves are in test_torch_flagship.py and
+    test_torch_switches.py.)"""
     case = build_reference_case(8, "float32", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    with pytest.raises(TypeError, match="for object"):
         day_step(case.state, case.forcing, case.params, case.geom,
                  case.cfg.dt, case.cfg.nisurf, **extra)
     block = case.forcing.map(lambda x: x[None])
     acc = t_state.AnnualAccumulators.zeros(8, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    with pytest.raises(TypeError, match="for object"):
         block_step(case.state, acc, block, case.params, case.geom,
                    case.cfg.dt, case.cfg.nisurf, **extra)
 
@@ -230,6 +229,8 @@ def test_port_never_imports_jax():
             "import hybrid9_tpu_torch.data.soil_raw\n"
             "import hybrid9_tpu_torch.io.checkpoint\n"
             "import hybrid9_tpu_torch.io.writer\n"
+            "import hybrid9_tpu_torch.site, hybrid9_tpu_torch.spinup\n"
+            "import hybrid9_tpu_torch.physics.lateral\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'hybrid9_tpu'))\n"
             "print(bad)\n"
