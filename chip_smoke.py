@@ -95,7 +95,22 @@ non-zero:
 13. site mode through the command line (``site --engine kernel`` on the
    card, 20 summer days at nisurf 48): the daily CSV against ``--engine
    oracle`` (theta within 5e-3), and ms per site-day on the card and
-   with ``--device cpu``.
+   with ``--device cpu``;
+14. the closed loop through the command line at 0.5 degrees, float32:
+   ``ensemble --members 8`` for the whole default year (365 kernel
+   launches at 557,056 cells, a finite file with spread on land, member 0
+   against the control run unfolded, the first 2 folded days against the
+   folded plain twin with knife-edge cells set aside), ``assimilate
+   --members 16 --days 10 --obs-twin 0.5`` (10 launches at 1,114,112
+   cells, a finite posterior within the clamp, the padding lanes'
+   multipliers bitwise their first draw from the card's generator),
+   ``calibrate --obs-twin 0.4 --fields hksat --days 2 --steps 2`` with a
+   scalar and a per-cell theta (no kernel launch, finite gradients, the
+   loss falls; one Adam step's seconds and the fit's peak memory), the
+   kernel wrapper raising under autograd, and the site ``calibrate`` of
+   tests/test_calibrate.py on the card and the CPU; the kernel day at both
+   folded widths with its rounds, the ensemble day and year, and a DA
+   cycle's forecast and analysis.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -114,8 +129,10 @@ import time
 
 import numpy as np
 import torch
+from torch.optim import optimizer
 
-from hybrid9_tpu_torch import cli, kernels
+from hybrid9_tpu_torch import calendar, cli, kernels
+from hybrid9_tpu_torch.calibrate import apply_multipliers
 from hybrid9_tpu_torch.config import (CANONICAL_ZI_MM, Config, LayerGrid,
                                       exponential_interfaces)
 from hybrid9_tpu_torch.data.synthetic import (synthetic_forcing_block,
@@ -128,6 +145,7 @@ from hybrid9_tpu_torch.data.device_forcing import \
 from hybrid9_tpu_torch.data.forcing import (PGF_VARIABLES,
                                             NetCDFForcingProvider)
 from hybrid9_tpu_torch.data.soil import load_soil
+from hybrid9_tpu_torch.ensemble import fold
 from hybrid9_tpu_torch.io.netcdf import read_grid_file
 from hybrid9_tpu_torch.io.writer import ANNUAL_UNITS
 from hybrid9_tpu_torch.physics import constants as c
@@ -221,7 +239,8 @@ def _compare(label, got, want, tol, bsw, held=None):
     return float(d.amax(dim=1)[held].max())
 
 
-def knife_edge_cells(soil, veg, params, forcing, geom, want, **kw):
+def knife_edge_cells(soil, veg, params, forcing, geom, want, dt=1800.0,
+                     nisurf=48, **kw):
     """Float32 cells on a knife edge, found from the plain twin alone: its
     water table ends within KNIFE_EDGE_M of the column bottom, where the
     ``zwt > zi/1000`` branch switches between the in-column and the
@@ -239,7 +258,7 @@ def knife_edge_cells(soil, veg, params, forcing, geom, want, **kw):
         nudged = day_kernel.hydrology_day_plain(
             soil.replace(h2osoi_liq=nudge(soil.h2osoi_liq),
                          zwt=nudge(soil.zwt)),
-            veg, params, forcing, geom, 1800.0, 48, **kw)
+            veg, params, forcing, geom, dt, nisurf, **kw)
         for bad in _outside(_fields(*nudged), base, F32_TOL,
                             params.bsw).values():
             edge |= bad
@@ -984,6 +1003,446 @@ def site_path(tmp, smi, device_argv=()):
     return summary
 
 
+#: Phase 14: the closed loop at 0.5 degrees.
+ENSEMBLE_MEMBERS = 8          # the ensemble command's default
+DA_MEMBERS = 16               # the assimilate command's default
+DA_DAYS = 10                  # of the command's default 25
+FIT_DAYS = 2                  # of calibrate --config's default 60
+FIT_STEPS = 2                 # of its default 100
+FOLDED_CHECK_DAYS = 2
+DA_FOLDED_CHECK_DAYS = 1      # the first forecast at 16 x 69,632 cells
+
+
+class LoopLog(logging.Handler):
+    """The closed-loop commands' log records by their arguments
+    (``cli.ENSEMBLE_LOG``, ``cli.TWIN_LOG``)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.ensemble, self.twin = [], []
+
+    def emit(self, record):
+        if record.msg == cli.ENSEMBLE_LOG:
+            self.ensemble.append(record.args)
+        elif record.msg == cli.TWIN_LOG:
+            self.twin.append(record.args)
+
+
+class KernelWidths:
+    """While active, records the cell count of every launch of the day
+    kernel through its wrapper (the wrapper still counts the launch)."""
+
+    def __init__(self):
+        self.widths = []
+        self._wrapped = day_kernel.hydrology_day_cuda
+
+    def __enter__(self):
+        wrapped = self._wrapped
+
+        def record(soil, *args, **kw):
+            self.widths.append(soil.h2osoi_liq.shape[0])
+            return wrapped(soil, *args, **kw)
+        day_kernel.hydrology_day_cuda = record
+        return self
+
+    def __exit__(self, *exc):
+        day_kernel.hydrology_day_cuda = self._wrapped
+
+
+def _rounds(cells, dtype):
+    """Rounds of resident blocks the main instance (nl 8, no ``imp``)
+    takes for ``cells`` on this card; None off the card."""
+    if not torch.cuda.is_available():
+        return None
+    sms, blocks, threads, _ = day_kernel.instance_residency(
+        kernels.day_kernel_lib(), dtype, 8, False)
+    return day_kernel.rounds(cells, sms, blocks, threads)
+
+
+def _run_cli(argv, label):
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"{label}: exit code {rc}")
+    return wall
+
+
+def _annual_control(cfg, params, state0, forcing, geom, fields):
+    """The ensemble's member 0 run unfolded: ``day_step`` over the year on
+    ``apply_multipliers(params, zeros)`` with the command's switches,
+    summed as ``run_ensemble_annual`` sums."""
+    p = apply_multipliers(params, {f: torch.zeros(
+        (), dtype=params.hksat.dtype, device=params.hksat.device)
+        for f in fields})
+    state = state0
+    ev = rn = np_ = torch.zeros_like(state0.veg.lai)
+    for d in range(forcing.tas.shape[0]):
+        state, diags = day_step(state, forcing.map(lambda x: x[d]), p, geom,
+                                cfg.dt, cfg.nisurf, use_kernel=cfg.use_kernel,
+                                zd09_every=cfg.zd09_every,
+                                vegetation=cfg.vegetation)
+        ev = ev + diags["evap_day"]
+        rn = rn + diags["rnf_day"]
+        np_ = np_ + diags["npp"]
+    return dict(evap=ev, runoff=rn, npp=np_)
+
+
+def _folded_days_vs_twin(label, cfg, params_m, state_m, forcing, geom, m,
+                         days):
+    """The first ``days`` folded days, kernel against plain twin at the
+    hydrology day (each day from the twin's state), with the knife-edge
+    cells set aside as in phase 3.  Returns (max |diff| of h2osoi in mm,
+    knife-edge cells)."""
+    err, n_edge = 0.0, 0
+    kw = dict(zd09_every=cfg.zd09_every)
+    for d in range(days):
+        f_m = forcing.map(lambda x: fold(x[d], m))
+        args = (state_m.soil, state_m.veg, params_m, f_m, geom, cfg.dt,
+                cfg.nisurf)
+        want = day_kernel.hydrology_day_plain(*args, **kw)
+        edge = knife_edge_cells(*args[:5], want, cfg.dt, cfg.nisurf, **kw)
+        if int(edge.sum()) > MAX_KNIFE_EDGE_SHARE * edge.numel():
+            raise RuntimeError(f"{label}: {int(edge.sum())} of "
+                               f"{edge.numel()} cells on a knife edge")
+        got = day_kernel.hydrology_day_cuda(*args, **kw)
+        err = max(err, check_day(f"{label}, day {d + 1}", got, want,
+                                 params_m.bsw, ~edge)[0])
+        n_edge += int(edge.sum())
+        if d + 1 < days:
+            state_m = day_step(state_m, f_m, params_m, geom, cfg.dt,
+                               cfg.nisurf, use_kernel=False,
+                               zd09_every=cfg.zd09_every,
+                               vegetation=cfg.vegetation)[0]
+    return err, n_edge
+
+
+def closed_loop_path(tmp, dev, smi, argv=(), **cfg_kw):
+    """Phase 14: the closed loop through the command line on ``Config()``
+    at 0.5 degrees (``cfg_kw`` and ``argv`` are for rehearsals on a small
+    grid): ``ensemble --members 8`` for the full default year (one kernel
+    launch a day at 8 x 69,632 cells; member 0 against the control run
+    unfolded; the first folded days against the twin), ``assimilate
+    --members 16 --days 10 --obs-twin 0.5`` (one launch a cycle at 16 x
+    69,632 cells; the first forecast against the twin at that width; the
+    padding lanes' multipliers bitwise their first draw), and
+    ``calibrate --obs-twin 0.4 --fields hksat --days 2 --steps 2`` with a
+    scalar and a per-cell theta (no kernel launch; finite gradients; the
+    loss falls), the kernel wrapper raising under autograd, and the site
+    ``calibrate`` on the card and the CPU.  Returns the phase's
+    summary."""
+    from hybrid9_tpu_torch import assimilate as da
+    from hybrid9_tpu_torch.ensemble import (_fold_problem,
+                                            perturbed_multipliers)
+    cfg = Config(output_path=tmp, **cfg_kw)
+    path = os.path.join(tmp, "loop.json")
+    with open(path, "w") as f:
+        f.write(cfg.to_json())
+    dtype = getattr(torch, cfg.dtype)
+    grid, params = load_soil(cfg, dtype, dev)
+    n, n_land = grid.n_padded, grid.n_land
+    lg = cfg.layer_grid()
+    state0 = initial_state(params, lg.dz, lg.zi, dtype, dev)
+    geom = Geometry.from_layer_grid(lg)
+    log = LoopLog()
+    logger = logging.getLogger("hybrid9_tpu_torch")
+    logger.addHandler(log)
+    out = {}
+    try:
+        # --- ensemble, the full default year ----------------------------
+        ens_path = os.path.join(tmp, "ensemble.nc")
+        fields = ("hksat", "bsw", "psi_s")
+        day_kernel.launches = 0
+        with KernelWidths() as w:
+            wall = _run_cli(["ensemble", "--config", path, "--members",
+                             str(ENSEMBLE_MEMBERS), "--out", ens_path, *argv],
+                            "ensemble")
+        launches = day_kernel.launches
+        ndays = calendar.days_in_year(cfg.start_year)
+        m_cells = ENSEMBLE_MEMBERS * n
+        if launches != ndays or w.widths != [m_cells] * ndays:
+            raise RuntimeError(f"ensemble: {launches} launches at widths "
+                               f"{sorted(set(w.widths))}")
+        names = [f"{v}_{s}" for v in ("evap", "runoff", "npp")
+                 for s in ("mean", "std", "control")]
+        back = read_grid_file(ens_path, names)
+        land = np.isfinite(back["evap_mean"])
+        if int(land.sum()) != n_land:
+            raise RuntimeError(f"ensemble file: {int(land.sum())} land "
+                               f"cells of {n_land}")
+        for k in names:
+            if not np.array_equal(np.isfinite(back[k]), land):
+                raise RuntimeError(f"ensemble file: {k} not finite on land "
+                                   f"and fill over the ocean")
+        spread_share = float((back["evap_std"][land] > 0).mean())
+        if not spread_share > 0.5:
+            raise RuntimeError(f"ensemble: evap spread > 0 on "
+                               f"{spread_share:.3f} of land")
+        forcing = cli._stacked_forcing(cfg, grid, ndays, dtype, dev)
+        control = _annual_control(cfg, params, state0, forcing, geom, fields)
+        bitwise, ctrl_err = True, 0.0
+        for k, x in control.items():
+            got = torch.tensor(back[f"{k}_control"][land], dtype=dtype)
+            want = torch.tensor(grid.scatter(x.cpu().numpy())[land])
+            bitwise &= bool(torch.equal(got, want))
+            ctrl_err = max(ctrl_err, float((got.double()
+                                            - want.double()).abs().max()))
+            rtol, atol = F32_TOL["evap_day"]
+            if not bool(((got.double() - want.double()).abs()
+                         <= atol + rtol * want.double().abs()).all()):
+                raise RuntimeError(f"ensemble member 0: {k} off the control "
+                                   f"by {ctrl_err}")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        theta = perturbed_multipliers(gen, ENSEMBLE_MEMBERS, fields=fields,
+                                      sigma=0.3, dtype=dtype)
+        params_m, state_m = _fold_problem(theta, params, state0,
+                                          ENSEMBLE_MEMBERS)
+        fold_err, fold_edge = _folded_days_vs_twin(
+            f"folded kernel vs twin, {m_cells} cells", cfg, params_m,
+            state_m, forcing, geom, ENSEMBLE_MEMBERS, FOLDED_CHECK_DAYS)
+        f_m = forcing.map(lambda x: fold(x[0], ENSEMBLE_MEMBERS))
+        kday = (state_m.soil, state_m.veg, params_m, f_m, geom, cfg.dt,
+                cfg.nisurf)
+        k_ms = _time_cuda(lambda: day_kernel.hydrology_day_cuda(
+            *kday, zd09_every=cfg.zd09_every)[0].h2osoi_liq, 10)[0]
+        step_ms, step_wall_ms = _time_cuda(lambda: day_step(
+            state_m, f_m, params_m, geom, cfg.dt, cfg.nisurf,
+            use_kernel=cfg.use_kernel, zd09_every=cfg.zd09_every,
+            vegetation=cfg.vegetation)[0].soil.h2osoi_liq, 10)
+        year_s = log.ensemble[-1][3]
+        bound = day_bound(kday, None, cfg.zd09_every)
+        out["ensemble"] = dict(
+            members=ENSEMBLE_MEMBERS, cells=m_cells, days=ndays,
+            launches=launches, year_s=year_s, wall_s=wall,
+            kernel_ms=k_ms, day_step_ms=step_ms,
+            day_step_wall_ms=step_wall_ms,
+            day_step_cell_days_per_s=m_cells / (step_ms * 1e-3),
+            member0_bitwise=bitwise, member0_max_abs_err=ctrl_err,
+            spread_share_of_land=spread_share,
+            folded_vs_twin_max_abs_err=fold_err,
+            folded_knife_edge_cells=fold_edge, rounds=_rounds(m_cells, dtype),
+            bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+        print(f"closed loop, ensemble: {ENSEMBLE_MEMBERS} members x {n} "
+              f"cells ({m_cells} folded) x {ndays} days: {launches} kernel "
+              f"launches at {m_cells} cells, year {year_s:.3f} s ({wall:.2f} "
+              f"s wall with set-up and output); member 0 "
+              f"{'bitwise' if bitwise else 'within F32_TOL of'} the control "
+              f"(max |diff| {ctrl_err:.3e}); folded kernel vs twin, "
+              f"{FOLDED_CHECK_DAYS} days: {fold_err:.3e} mm ({fold_edge} "
+              f"knife-edge cells); kernel day {k_ms:.3f} ms, day_step "
+              f"{step_ms:.3f} ms ({m_cells / (step_ms * 1e-3):.4g} "
+              f"cell-days/s) ({smi})")
+
+        # --- assimilation -------------------------------------------------
+        da_path = os.path.join(tmp, "enkf.npz")
+        record = {}
+        wrapped = da.assimilate
+
+        def keep(*a, **kw):
+            record.update(wrapped(*a, **kw))
+            record["args"] = (a, kw)
+            return record
+        da.assimilate = keep
+        day_kernel.launches = 0
+        try:
+            with KernelWidths() as w:
+                wall = _run_cli(["assimilate", "--config", path, "--members",
+                                 str(DA_MEMBERS), "--days", str(DA_DAYS),
+                                 "--obs-twin", "0.5", "--out", da_path,
+                                 *argv], "assimilate")
+        finally:
+            da.assimilate = wrapped
+        launches = day_kernel.launches
+        d_cells = DA_MEMBERS * n
+        if launches != DA_DAYS or w.widths != [d_cells] * DA_DAYS:
+            raise RuntimeError(f"assimilate: {launches} launches at widths "
+                               f"{sorted(set(w.widths))}")
+        with np.load(da_path) as z:
+            tm, ts = z["theta_mean"], z["theta_std"]
+        if not (np.isfinite(tm).all() and np.isfinite(ts).all()
+                and np.abs(tm).max() <= 2.0 and tm.shape == (n_land,)):
+            raise RuntimeError(f"assimilate: posterior {tm.shape}, |theta| "
+                               f"max {np.abs(tm).max()}")
+        first = da.first_draw(torch.Generator(device=dev).manual_seed(0),
+                              DA_MEMBERS, n, 0.3, dtype)
+        pad = slice(n_land, n)
+        if n > n_land and not (
+                torch.equal(record["theta_mean"][pad], first.mean(dim=0)[pad])
+                and torch.equal(record["theta_std"][pad],
+                                first.std(dim=0, correction=0)[pad])):
+            raise RuntimeError("assimilate: the padding lanes' multipliers "
+                               "moved off their first draw")
+        (a_params, a_state0, a_forcing, a_obs, a_geom), a_kw = record["args"]
+        m = DA_MEMBERS
+        params_t = a_params.map(lambda x: fold(x, m))
+        # The first forecast, kernel against twin at 16 x 69,632 cells:
+        # the first draw's hksat multipliers, as _enkf_cycle applies them.
+        da_err, da_edge = _folded_days_vs_twin(
+            f"folded kernel vs twin, {d_cells} cells", cfg,
+            apply_multipliers(params_t, {"hksat": first.T.reshape(n * m)}),
+            a_state0.map(lambda x: fold(x, m)), a_forcing, a_geom, m,
+            DA_FOLDED_CHECK_DAYS)
+        # One cycle on the final state, whole and its forecast alone.
+        theta_m = first.clone()
+        state_m = record["state"]
+        f_day = a_forcing.map(lambda x: x[DA_DAYS - 1])
+        p = apply_multipliers(params_t, {"hksat": theta_m.T.reshape(n * m)})
+        f_m = f_day.map(lambda x: fold(x, m))
+        mask = a_kw["obs_mask"][DA_DAYS - 1]
+        enkf = a_kw["cfg"]
+
+        def cycle():
+            return da._enkf_cycle(state_m, theta_m, params_t, f_day,
+                                  a_obs[DA_DAYS - 1], mask, a_geom, cfg.dt, m,
+                                  cfg.nisurf, cfg.vegetation, cfg.use_kernel,
+                                  cfg.zd09_every, enkf)[1]
+        cycle_ms = _time_cuda(cycle, 10)[0]
+        forecast_ms = _time_cuda(lambda: day_step(
+            state_m, f_m, p, geom, cfg.dt, cfg.nisurf,
+            use_kernel=cfg.use_kernel, zd09_every=cfg.zd09_every,
+            vegetation=cfg.vegetation)[0].soil.h2osoi_liq, 10)[0]
+        k16_ms = _time_cuda(lambda: day_kernel.hydrology_day_cuda(
+            state_m.soil, state_m.veg, p, f_m, geom, cfg.dt, cfg.nisurf,
+            zd09_every=cfg.zd09_every)[0].h2osoi_liq, 10)[0]
+        out["assimilate"] = dict(
+            members=m, cells=d_cells, days=DA_DAYS, launches=launches,
+            wall_s=wall, twin_obs_s=log.twin[-1][1],
+            theta_mean_land=float(tm.mean()),
+            theta_std_land_median=float(np.median(ts)),
+            cycle_ms=cycle_ms, forecast_ms=forecast_ms,
+            analysis_ms=cycle_ms - forecast_ms, kernel_ms=k16_ms,
+            rounds=_rounds(d_cells, dtype),
+            folded_vs_twin_max_abs_err=da_err,
+            folded_knife_edge_cells=da_edge)
+        print(f"closed loop, assimilate: {m} members x {n} cells ({d_cells} "
+              f"folded) x {DA_DAYS} days: {launches} kernel launches at "
+              f"{d_cells} cells, {wall:.2f} s wall, twin obs "
+              f"{log.twin[-1][1]:.2f} s; posterior log-mult mean "
+              f"{float(tm.mean()):.4f}, padding lanes bitwise their first "
+              f"draw; folded kernel vs twin, {DA_FOLDED_CHECK_DAYS} day: "
+              f"{da_err:.3e} mm ({da_edge} knife-edge cells); cycle "
+              f"{cycle_ms:.3f} ms (forecast {forecast_ms:.3f}, analysis "
+              f"{cycle_ms - forecast_ms:.3f}), kernel day "
+              f"{k16_ms:.3f} ms ({smi})")
+
+        # --- calibration --------------------------------------------------
+        fits = {}
+        for label, extra in (("scalar", []), ("per_cell", ["--per-cell"])):
+            marks, bad = [], []
+
+            def pre(opt, args, kwargs):
+                for group in opt.param_groups:
+                    for t in group["params"]:
+                        if t.grad is None or not bool(
+                                torch.isfinite(t.grad).all()):
+                            bad.append(t.grad is None)
+
+            def post(opt, args, kwargs):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                marks.append(time.perf_counter())
+            hooks = [optimizer.register_optimizer_step_pre_hook(pre),
+                     optimizer.register_optimizer_step_post_hook(post)]
+            fit_path = os.path.join(
+                tmp, "fit.npz" if label == "per_cell" else "fit.json")
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            day_kernel.launches = 0
+            try:
+                wall = _run_cli(["calibrate", "--config", path, "--obs-twin",
+                                 "0.4", "--fields", "hksat", "--days",
+                                 str(FIT_DAYS), "--steps", str(FIT_STEPS),
+                                 "--out", fit_path, *extra, *argv],
+                                f"calibrate {label}")
+            finally:
+                for h in hooks:
+                    h.remove()
+            peak, card = 0, None
+            if dev.type == "cuda":
+                peak = torch.cuda.max_memory_allocated(dev)
+                card = torch.cuda.get_device_properties(dev).total_memory
+            fit_launches = day_kernel.launches
+            if fit_launches != 0:
+                raise RuntimeError(f"calibrate {label}: the fit launched the "
+                                   f"day kernel {fit_launches} times")
+            if bad or len(marks) != FIT_STEPS:
+                raise RuntimeError(f"calibrate {label}: gradients not finite "
+                                   f"({len(bad)}) or {len(marks)} steps")
+            if label == "per_cell":
+                with np.load(fit_path) as z:
+                    hist = z["loss_history"]
+            else:
+                with open(fit_path) as f:
+                    fit = json.load(f)
+                hist = np.array([fit["loss_initial"], fit["loss_final"]])
+            if not (np.isfinite(hist).all() and hist[-1] < hist[0]):
+                raise RuntimeError(f"calibrate {label}: loss {hist}")
+            fits[label] = dict(days=FIT_DAYS, steps=FIT_STEPS, wall_s=wall,
+                               launches=fit_launches,
+                               step_s=marks[-1] - marks[-2],
+                               loss_first=float(hist[0]),
+                               loss_last=float(hist[-1]),
+                               peak_bytes=peak, card_bytes=card)
+            print(f"closed loop, calibrate {label}: {FIT_DAYS} days x "
+                  f"{FIT_STEPS} steps at {n} cells, no kernel launch, finite "
+                  f"gradients, loss {hist[0]:.4g} -> {hist[-1]:.4g}; one "
+                  f"Adam step {fits[label]['step_s']:.2f} s, peak memory "
+                  f"{peak / 1e9:.2f} GB of {(card or 0) / 1e9:.1f} ({smi})")
+        out["calibrate"] = fits
+
+        # The kernel has no backward: under autograd it raises.
+        before = day_kernel.launches
+        tracked = params.replace(hksat=params.hksat.clone().requires_grad_())
+        f1 = forcing.map(lambda x: x[0])
+        try:
+            day_kernel.hydrology_day_cuda(state0.soil, state0.veg, tracked,
+                                          f1, geom, cfg.dt, cfg.nisurf)
+        except RuntimeError as e:
+            if "use_kernel=False" not in str(e):
+                raise
+        else:
+            raise RuntimeError("the day kernel ran under autograd")
+        if day_kernel.launches != before:
+            raise RuntimeError("the refused call launched the day kernel")
+        print("closed loop: the day kernel's wrapper raises under autograd "
+              "(naming use_kernel=False) and launches nothing")
+
+        # The site fit of tests/test_calibrate.py, on the card and the CPU.
+        clim, obs = (os.path.join(tmp, x) for x in ("fit_clim.csv",
+                                                     "fit_obs.csv"))
+        keys = ("tas", "rlds", "rsds", "huss", "ps", "pr", "rhs")
+        with open(clim, "w") as f:
+            f.write(",".join(keys) + "\n")
+            for d in range(8):
+                day = synthetic_forcing_day(1, 150 + d, seed=5)
+                f.write(",".join(f"{float(day[k][0]):.8g}" for k in keys)
+                        + "\n")
+        with open(obs, "w") as f:
+            f.write("doy,evap_obs\n" + "".join(f"{d + 1},1.5\n"
+                                               for d in range(8)))
+        site = {}
+        for label, dargv in (("card", list(argv)),
+                             ("cpu", ["--device", "cpu"])):
+            fit_path = os.path.join(tmp, f"site_fit_{label}.json")
+            secs = _run_cli(["calibrate", "--climate", clim, "--obs", obs,
+                             "--fields", "hksat,bsw", "--steps", "2", "--lr",
+                             "0.05", "--nisurf", "8", "--out", fit_path,
+                             *dargv], f"site calibrate {label}")
+            with open(fit_path) as f:
+                fit = json.load(f)
+            if fit["obs_days"] != 8 or not np.isfinite(fit["loss_final"]):
+                raise RuntimeError(f"site calibrate {label}: {fit}")
+            site[label] = dict(seconds=secs, **fit)
+        out["site_calibrate"] = site
+        print(f"closed loop, site calibrate (8 days, 2 steps, nisurf 8): "
+              f"{site['card']['seconds']:.2f} s on the card, "
+              f"{site['cpu']['seconds']:.2f} s with --device cpu ({smi})")
+    finally:
+        logger.removeHandler(log)
+    print(f"closed loop ({smi}): " + json.dumps(out))
+    return out
+
+
 def main() -> None:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -1375,6 +1834,10 @@ def main() -> None:
         spin = spinup_path(tmp, smi)
         site = site_path(tmp, smi)
 
+    # 14. The closed loop: ensemble, assimilation, calibration.
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = closed_loop_path(tmp, dev, smi)
+
     common = dict(route="cuda",
                   source="hybrid9_tpu_torch/csrc/day_kernel.cu",
                   bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
@@ -1396,6 +1859,23 @@ def main() -> None:
              spinup_path=dict(launches=spin["launches"],
                               launches_by_year=spin["launches_by_year"]),
              site_ms_per_day=site["ms_per_site_day"],
+             closed_loop=dict(
+                 ensemble=dict(launches=loop["ensemble"]["launches"],
+                               cells=loop["ensemble"]["cells"],
+                               ms=loop["ensemble"]["kernel_ms"],
+                               rounds=loop["ensemble"]["rounds"],
+                               bound_ms=loop["ensemble"]["bound_ms"]),
+                 assimilate=dict(launches=loop["assimilate"]["launches"],
+                                 cells=loop["assimilate"]["cells"],
+                                 ms=loop["assimilate"]["kernel_ms"],
+                                 rounds=loop["assimilate"]["rounds"],
+                                 max_abs_err=loop["assimilate"][
+                                     "folded_vs_twin_max_abs_err"]),
+                 calibrate_launches={k: v["launches"] for k, v in
+                                     loop["calibrate"].items()},
+                 member0_bitwise=loop["ensemble"]["member0_bitwise"],
+                 folded_max_abs_err=loop["ensemble"][
+                     "folded_vs_twin_max_abs_err"]),
              reference_path=dict(launches=ref_launches, max_abs_err=ref_err,
                                  ms=ref_kernel_ms, plain_ms=ref_plain_ms,
                                  cells=N_CELLS)),

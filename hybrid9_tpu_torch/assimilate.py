@@ -1,0 +1,214 @@
+"""Ensemble Kalman data assimilation (EnSRF) for states and parameters.
+
+Port of ``hybrid9_tpu/assimilate.py``: observed daily ET is assimilated
+sequentially into a running parameter-perturbed ensemble, updating both
+the soil water and per-cell hksat log-multipliers.  The reference's only
+use of observations was a visual model-vs-obs comparison at one site
+(HYBRID9.f90:449).
+
+- **Cell-local scalar-observation square-root filter** (Whitaker & Hamill
+  2002).  Cells are independent and the observation at a cell is a scalar,
+  so per cell, with moments over the member axis,
+
+      K_i     = cov_m(x_i, y_i) / (var_m(y_i) + r_i)       (mean gain)
+      K~_i    = K_i / (1 + sqrt(r_i / (var_m(y_i) + r_i)))  (anomaly)
+      mean_i += K_i  (obs_i - mean(y_i))
+      dx_i   -= K~_i dy_i
+
+  on ``[m, n]`` tensors: elementwise over cells, no solves.
+- **Relaxation to prior spread (RTPS)** (Whitaker & Hamill 2012): the
+  posterior spread is ``(1-a)·sigma_analysis + a·sigma_prior``, and cells
+  without an observation come back bit for bit, so their spread cannot
+  drift.
+- **Augmented state**: soil water, the aquifer and the log-multipliers;
+  the parameters change only through their covariance with predicted ET.
+- **The forecast is the folded ensemble** (ensemble.py, cell-major
+  ``j = cell*m + member``): on the card one launch of the CUDA day kernel
+  at ``members x cells`` a cycle.  The window is a Python loop over days;
+  nothing differentiates it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from .calibrate import apply_multipliers
+from .ensemble import fold
+from .physics import bounds
+from .physics import constants as c
+from .physics.hydrology import Geometry
+from .state import Forcing, ModelState, SoilParams
+from .step import day_step
+
+
+class EnKFConfig(NamedTuple):
+    obs_err_std: float = 0.3     # observation error, mm/day
+    rtps: float = 0.5            # relaxation-to-prior-spread coefficient
+    theta_min: float = -2.0      # clamp on log-multipliers
+    theta_max: float = 2.0
+
+
+def _moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Member-axis (mean, anomaly) of an ``[m, ...]`` tensor."""
+    mean = torch.mean(x, dim=0, keepdim=True)
+    return mean, x - mean
+
+
+def enkf_update_scalar_obs(aug: Dict[str, torch.Tensor],
+                           y_pred: torch.Tensor,
+                           obs: torch.Tensor,
+                           obs_mask: torch.Tensor,
+                           cfg: EnKFConfig = EnKFConfig()
+                           ) -> Dict[str, torch.Tensor]:
+    """One cell-local scalar-observation EnSRF analysis step.
+
+    ``aug``: the augmented ensemble, a dict of ``[m, n]`` (or
+    ``[m, n, l]``) tensors; ``y_pred``: ``[m, n]`` predicted observation
+    per member (daily ET); ``obs``: ``[n]`` observed values; ``obs_mask``:
+    ``[n]`` validity.  Returns the analysis ensemble (same structure).
+    Cells where ``obs_mask`` is false are returned bit for bit: no mean
+    shift, no anomaly scaling.
+    """
+    m = y_pred.shape[0]
+    y_mean, dy = _moments(y_pred)
+    var_y = torch.sum(dy * dy, dim=0) / (m - 1)          # [n]
+    r = cfg.obs_err_std ** 2
+    denom = var_y + r                                    # [n]
+    # Scalar-obs square-root anomaly factor (Whitaker & Hamill 2002
+    # Eq. 13): the anomaly gain is the mean gain shrunk by this.
+    sqrt_fac = 1.0 / (1.0 + torch.sqrt(r / denom))       # [n]
+    innov = obs.to(y_pred.dtype) - y_mean[0]             # [n]
+
+    def update(x):
+        mean, dx = _moments(x)
+        if x.dim() == 3:                                 # [m, n, l]
+            cov = torch.einsum("mn,mnl->nl", dy, dx) / (m - 1)
+            gain = cov / denom[:, None]
+            mean_a = mean + (gain * innov[:, None])[None]
+            dx_a = dx - (sqrt_fac[:, None] * gain)[None] * dy[:, :, None]
+            mask = obs_mask[None, :, None]
+        else:                                            # [m, n]
+            cov = torch.sum(dy * dx, dim=0) / (m - 1)
+            gain = cov / denom
+            mean_a = mean + (gain * innov)[None]
+            dx_a = dx - (sqrt_fac * gain)[None] * dy
+            mask = obs_mask[None, :]
+        # RTPS: sigma_post = (1-a)·sigma_a + a·sigma_f; the factor is
+        # exactly 1 where the update was a no-op.
+        sig_f = torch.sqrt(torch.sum(dx * dx, dim=0) / (m - 1))
+        sig_a = torch.sqrt(torch.sum(dx_a * dx_a, dim=0) / (m - 1))
+        relax = 1.0 + cfg.rtps * (sig_f - sig_a) / bounds.maximum(sig_a,
+                                                                  1.0e-12)
+        x_a = mean_a + dx_a * relax[None]
+        return torch.where(mask, x_a, x)
+
+    return {k: update(v) for k, v in aug.items()}
+
+
+def _enkf_cycle(state_m: ModelState, theta_m: torch.Tensor,
+                params_tiled: SoilParams, f_day: Forcing,
+                obs: torch.Tensor, obs_mask: torch.Tensor,
+                geom: Geometry, dt: float, m: int, nisurf: int,
+                vegetation: bool, use_kernel, zd09_every: int,
+                cfg: EnKFConfig):
+    """Forecast one day at ensemble width, then analyse.
+
+    ``state_m``: the cell-major folded ``[n*m]`` model state; ``theta_m``:
+    ``[m, n]`` per-cell hksat log-multipliers; ``params_tiled``: the base
+    params folded to ``[n*m]`` (the multipliers are applied here, so the
+    analysed theta takes effect on the next forecast); ``f_day``: ``[n]``
+    forcing shared by the members.  Returns ``(state_m', theta_m',
+    y_pred)``.  The member views are reshapes and transposes of the folded
+    axis.
+    """
+    n = obs.shape[0]
+    p = apply_multipliers(params_tiled,
+                          {"hksat": theta_m.T.reshape(n * m)})
+    f_m = f_day.map(lambda x: fold(x, m))
+    state_m, diags = day_step(state_m, f_m, p, geom, dt, nisurf,
+                              use_kernel=use_kernel, zd09_every=zd09_every,
+                              vegetation=vegetation)
+    y_pred = diags["evap_day"].reshape(n, m).T
+
+    nl = state_m.soil.h2osoi_liq.shape[1]
+    aug = dict(
+        h2osoi=state_m.soil.h2osoi_liq.reshape(n, m, nl).transpose(0, 1),
+        wa=state_m.soil.wa.reshape(n, m).T,
+        theta=theta_m,
+    )
+    aug = enkf_update_scalar_obs(aug, y_pred, obs, obs_mask, cfg)
+
+    # Physical guards: non-negative stores, bounded multipliers.
+    h = bounds.maximum(aug["h2osoi"], 1.0e-3).transpose(0, 1) \
+        .reshape(n * m, nl)
+    wa = bounds.clip(aug["wa"], 0.0, 5000.0).T.reshape(n * m)
+    theta_m = bounds.clip(aug["theta"], cfg.theta_min, cfg.theta_max)
+    # smp from the ANALYSED moisture (Clapp-Hornberger, as initial_state;
+    # O13 Eqn 7.94): it is a carry the next substep's beta-stress reads
+    # (HYDROLOGY.f90:271).  The prior zwt is kept, as the JAX package
+    # keeps it (ROADMAP §C).
+    dz = torch.as_tensor(geom.dz_soil, dtype=h.dtype, device=h.device)
+    s_node = bounds.clip((h / dz[None, :]) / p.theta_s, 0.01, 1.0)
+    smp = bounds.maximum(p.psi_s * s_node ** (-p.bsw), c.SMPMIN)
+    state_m = state_m.replace(soil=state_m.soil.replace(
+        h2osoi_liq=h, wa=wa, smp=smp))
+    return state_m, theta_m, y_pred
+
+
+def first_draw(generator: torch.Generator, m: int, n: int,
+               theta_spread: float, dtype: torch.dtype) -> torch.Tensor:
+    """The ``[m, n]`` prior hksat log-multipliers: ``theta_spread`` times
+    standard normals from ``generator``, on its device."""
+    return theta_spread * torch.randn((m, n), generator=generator,
+                                      dtype=dtype, device=generator.device)
+
+
+@torch.no_grad()
+def assimilate(params: SoilParams, state0: ModelState,
+               forcing_days: Forcing, obs_et: torch.Tensor,
+               geom: Geometry, n_members: int = 16,
+               obs_mask: Optional[torch.Tensor] = None,
+               nisurf: int = c.NISURF_DEFAULT,
+               theta_spread: float = 0.3, seed: int = 0,
+               vegetation: bool = True, use_kernel=None,
+               zd09_every: int = 1,
+               cfg: EnKFConfig = EnKFConfig()) -> Dict[str, torch.Tensor]:
+    """Sequential EnSRF over a daily-ET observation record.
+
+    ``forcing_days``: ``[days, n]`` Forcing; ``obs_et``: ``[days, n]``
+    observed daily ET (mm/day); ``obs_mask``: ``[days, n]`` validity
+    (default: all valid); ``n_members``: the ensemble width m;
+    ``theta_spread``: the std of the prior hksat log-multipliers, drawn by
+    :func:`first_draw` from a ``torch.Generator`` seeded with ``seed`` on
+    the device of ``state0`` (the CPU's and the card's generators give
+    different streams).  ``use_kernel`` as in ``step.day_step``.  (The JAX
+    package's ``sharding=`` waits for ROADMAP A9.)
+
+    Returns the posterior ``theta_mean``/``theta_std`` ``[n]``, the final
+    folded ensemble state and the ``[days, n]`` ensemble-mean predicted ET
+    (for innovation diagnostics).
+    """
+    m = n_members
+    lai = state0.veg.lai
+    n = lai.shape[0]
+    ndays = obs_et.shape[0]
+    if obs_mask is None:
+        obs_mask = torch.ones((ndays, n), dtype=torch.bool, device=lai.device)
+    generator = torch.Generator(device=lai.device).manual_seed(seed)
+    theta_m = first_draw(generator, m, n, theta_spread, lai.dtype)
+    params_tiled = params.map(lambda x: fold(x, m))
+    state_m = state0.map(lambda x: fold(x, m))
+    dt = c.SDAY / nisurf
+    y_means = []
+    for d in range(ndays):
+        state_m, theta_m, y_pred = _enkf_cycle(
+            state_m, theta_m, params_tiled, forcing_days.map(lambda x: x[d]),
+            obs_et[d], obs_mask[d], geom, dt, m, nisurf, vegetation,
+            use_kernel, zd09_every, cfg)
+        y_means.append(torch.mean(y_pred, dim=0))
+    return dict(theta_mean=torch.mean(theta_m, dim=0),
+                theta_std=torch.std(theta_m, dim=0, correction=0),
+                state=state_m,
+                y_pred_mean=torch.stack(y_means))

@@ -1,0 +1,201 @@
+"""Gradient-based parameter calibration (adjoint sensitivity).
+
+Port of ``hybrid9_tpu/calibrate.py``.  The sensitivity of simulated daily
+ET to the soil parameters is one ``torch.autograd.grad`` away, so fitting
+the parameters to observations is first-order optimisation instead of the
+reference's hand-tuning loop (reference notes.txt Nov-Dec 2016; the LCLIM
+harness compares model and observed ET by eye, HYBRID9.f90:449).
+
+- Parameters are fitted through **log-space multipliers** on the positive
+  soil properties (``hksat``, ``|psi_s|``, ``bsw``, ``fmax``): a zero
+  multiplier is the identity, and ``lambda_ = 1/bsw`` is kept consistent.
+- The forward model is the plain day (``step.day_step`` with
+  ``use_kernel=False`` and ``zd09_every=1``), as the JAX package
+  differentiates its XLA path and never its Pallas kernel; the CUDA day
+  kernel has no backward and raises under autograd.  Each day runs under
+  ``torch.utils.checkpoint``, so the tape holds one day's substeps at a
+  time and the backward pass recomputes them.
+- The optimiser is ``torch.optim.Adam`` with its defaults, which are
+  optax's.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from .physics import bounds
+from .physics import constants as c
+from .physics.hydrology import Geometry
+from .state import Forcing, ModelState, SoilParams
+from .step import day_step
+
+# Fields eligible for log-multiplier calibration.  theta_s / theta_m are
+# left out: scaling them can violate theta_m < theta_s and the saturation
+# bound that initial_state assumes.
+CALIBRATABLE = ("hksat", "psi_s", "bsw", "fmax")
+
+
+class CalibrationSpec(NamedTuple):
+    """Which parameters to fit and whether multipliers are per-cell.
+
+    ``fields``: subset of CALIBRATABLE.  ``per_cell``: False -> one scalar
+    multiplier per field (the robust default for short records); True ->
+    one multiplier per packed cell (a spatial inversion; needs dense obs).
+    """
+
+    fields: Tuple[str, ...] = ("hksat", "psi_s", "bsw")
+    per_cell: bool = False
+
+    def init_theta(self, n_cells: int, dtype: torch.dtype, device
+                   ) -> Dict[str, torch.Tensor]:
+        shape = (n_cells,) if self.per_cell else ()
+        return {f: torch.zeros(shape, dtype=dtype, device=device)
+                for f in self.fields}
+
+
+def apply_multipliers(params: SoilParams,
+                      theta: Dict[str, torch.Tensor]) -> SoilParams:
+    """Scale soil parameters by ``exp(theta)`` per field.
+
+    ``psi_s`` is negative (mm); multiplying by ``exp(theta) > 0`` scales
+    its magnitude and keeps the sign.  Scaling ``bsw`` updates ``lambda_ =
+    1/bsw`` (INIT.f90:611-631 derives bsw from lambda the same way).  A
+    per-cell ``[n]`` theta broadcasts over a field's layers.
+    """
+    updates = {}
+    for field, t in theta.items():
+        if field not in CALIBRATABLE:
+            raise ValueError(f"{field} is not calibratable "
+                             f"(allowed: {CALIBRATABLE})")
+        base = getattr(params, field)
+        mult = torch.exp(t)
+        if mult.dim() == 1:                      # per-cell -> broadcast
+            mult = mult.reshape((-1,) + (1,) * (base.dim() - 1))
+        updates[field] = base * mult
+        if field == "bsw":
+            updates["lambda_"] = 1.0 / updates[field]
+    return params.replace(**updates)
+
+
+def _day_et(state: ModelState, f_day: Forcing, params: SoilParams,
+            geom: Geometry, dt: float, nisurf: int, vegetation: bool):
+    state, diags = day_step(state, f_day, params, geom, dt, nisurf,
+                            use_kernel=False, zd09_every=1,
+                            vegetation=vegetation)
+    return state, diags["evap_day"]
+
+
+def simulate_daily_et(theta: Dict[str, torch.Tensor],
+                      params: SoilParams,
+                      state0: ModelState,
+                      forcing_days: Forcing,
+                      geom: Geometry,
+                      nisurf: int = c.NISURF_DEFAULT,
+                      vegetation: bool = True) -> torch.Tensor:
+    """Forward model: daily ET ``[days, n]`` (mm/day) under multipliers.
+
+    ``forcing_days`` holds stacked ``[days, n]`` tensors.  Every day is
+    the plain (differentiable) day step, recomputed in the backward pass
+    rather than kept (``torch.utils.checkpoint``), so reverse mode over a
+    year holds one day's tape.
+    """
+    p = apply_multipliers(params, theta)
+    dt = c.SDAY / nisurf
+    state = state0
+    evap = []
+    for d in range(forcing_days.tas.shape[0]):
+        f_day = forcing_days.map(lambda x: x[d])
+        state, et = checkpoint(_day_et, state, f_day, p, geom, dt, nisurf,
+                               vegetation, use_reentrant=False,
+                               preserve_rng_state=False)
+        evap.append(et)
+    return torch.stack(evap)
+
+
+def et_loss(theta, params, state0, forcing_days, geom, obs_et,
+            nisurf: int = c.NISURF_DEFAULT,
+            obs_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean-squared error of simulated vs observed daily ET (mm/day).
+
+    ``obs_et``: ``[days, n]`` observations (the analog of the LCLIM
+    harness's ``evap_obs`` column, HYBRID9.f90:449); ``obs_mask``
+    optionally marks valid observations (missing data -> 0 weight).
+    """
+    sim = simulate_daily_et(theta, params, state0, forcing_days, geom,
+                            nisurf)
+    err2 = (sim - obs_et) ** 2
+    if obs_mask is not None:
+        w = obs_mask.to(err2.dtype)
+        return torch.sum(err2 * w) / bounds.maximum(torch.sum(w), 1.0)
+    return torch.mean(err2)
+
+
+class CalibrationResult(NamedTuple):
+    theta: Dict[str, torch.Tensor]      # fitted log-multipliers
+    params: SoilParams                  # calibrated parameter set
+    loss_history: torch.Tensor          # [steps + 1] (includes initial)
+
+
+def calibrate(params: SoilParams,
+              state0: ModelState,
+              forcing_days: Forcing,
+              geom: Geometry,
+              obs_et: torch.Tensor,
+              spec: CalibrationSpec = CalibrationSpec(),
+              nisurf: int = c.NISURF_DEFAULT,
+              steps: int = 50,
+              learning_rate: float = 0.1,
+              obs_mask: Optional[torch.Tensor] = None
+              ) -> CalibrationResult:
+    """Fit soil-parameter multipliers to observed daily ET with Adam.
+
+    Each step takes the loss and its gradient at the current multipliers
+    and then updates them; ``loss_history`` holds each step's loss before
+    its update and, last, the loss at the fitted multipliers.  Everything
+    stays on the device of ``params``: the loop never waits for the card.
+    (The JAX package's ``sharding=`` waits for ROADMAP A9.)
+    """
+    ref = params.hksat
+    theta = {k: v.requires_grad_(True) for k, v in spec.init_theta(
+        params.n_cells, ref.dtype, ref.device).items()}
+    opt = torch.optim.Adam(list(theta.values()), lr=learning_rate)
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad()
+        loss = et_loss(theta, params, state0, forcing_days, geom, obs_et,
+                       nisurf, obs_mask)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    fitted = {k: v.detach() for k, v in theta.items()}
+    with torch.no_grad():
+        losses.append(et_loss(fitted, params, state0, forcing_days, geom,
+                              obs_et, nisurf, obs_mask))
+    return CalibrationResult(theta=fitted,
+                             params=apply_multipliers(params, fitted),
+                             loss_history=torch.stack(losses))
+
+
+def parameter_sensitivity(params: SoilParams,
+                          state0: ModelState,
+                          forcing_days: Forcing,
+                          geom: Geometry,
+                          fields: Sequence[str] = CALIBRATABLE,
+                          nisurf: int = c.NISURF_DEFAULT
+                          ) -> Dict[str, torch.Tensor]:
+    """d(mean ET)/d(log parameter) per cell for each field: a one-call
+    adjoint sensitivity analysis, where the Fortran reference would need
+    one finite-difference run per parameter per cell."""
+    spec = CalibrationSpec(fields=tuple(fields), per_cell=True)
+    ref = params.hksat
+    theta = {k: v.requires_grad_(True) for k, v in spec.init_theta(
+        params.n_cells, ref.dtype, ref.device).items()}
+    mean_et = torch.mean(simulate_daily_et(theta, params, state0,
+                                           forcing_days, geom, nisurf))
+    grads = torch.autograd.grad(mean_et, list(theta.values()),
+                                allow_unused=True)
+    return {k: torch.zeros_like(t) if g is None else g
+            for (k, t), g in zip(theta.items(), grads)}

@@ -9,14 +9,18 @@ EXECUTE/slurm_submit):
     python -m hybrid9_tpu_torch run --config run.json --device cpu
     python -m hybrid9_tpu_torch site --csv-out site.csv [--spinup 10]
     python -m hybrid9_tpu_torch site --engine kernel [--device cpu]
+    python -m hybrid9_tpu_torch calibrate --climate c.csv --obs obs.csv
+    python -m hybrid9_tpu_torch calibrate --config run.json --obs-twin 0.4
+    python -m hybrid9_tpu_torch ensemble --config run.json --members 8
+    python -m hybrid9_tpu_torch assimilate --config run.json --obs-twin 0.5
     python -m hybrid9_tpu_torch prep-soil --hwsd ... --bnu-dir ... --out ...
     python -m hybrid9_tpu_torch info
 
-``run`` takes the JAX package's Config files (their TPU-only keys are
-dropped) and runs on the card unless ``--device`` names another, as does
-``site --engine kernel``.  The commands that are not ported yet
-(``calibrate``, ``ensemble``, ``assimilate``) are there and raise,
-naming their ROADMAP item.
+``run``, ``calibrate --config``, ``ensemble`` and ``assimilate`` take the
+JAX package's Config files (their TPU-only keys are dropped).  Every
+command that runs the model runs on the card unless ``--device`` names
+another (``site`` with ``--engine kernel``).  ``--shard`` waits for
+ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -36,6 +40,14 @@ log = get_logger(__name__)
 
 #: The log line of a resumed run: (checkpoint year, seconds to restore).
 RESUME_LOG = "resumed from checkpoint year %d in %.3fs"
+#: The log line of an ensemble run: (members, cells, days, seconds of the
+#: run closed by its host copy, device).
+ENSEMBLE_LOG = ("ensemble: %d members x %d cells x %d days in %.2fs "
+                "(member axis folded into the cell axis, device %s)")
+#: The log line of the twin observations of ``assimilate --obs-twin``:
+#: (log-multiplier, seconds).
+TWIN_LOG = ("twin experiment: obs generated at hksat log-multiplier %.3f "
+            "in %.2fs")
 
 def _config(args: argparse.Namespace):
     """The run's Config: ``--config`` (or the defaults), with ``--years``
@@ -187,10 +199,367 @@ def cmd_info(args: argparse.Namespace) -> int:
     return 0
 
 
-def _not_ported(command: str, item: str):
-    def fn(args: argparse.Namespace) -> int:
-        waits(f"the {command!r} command", item)
-    return fn
+def _single_host_provider(cfg, grid, dtype, device):
+    """The forcing provider of the closed-loop commands (ensemble, and
+    calibrate and assimilate on the global grid): the PGF archive where the
+    Config names one, else the host synthetic generator, which
+    ``device-synthetic`` falls back to as in the JAX package.  No
+    prefetch thread: the commands read one block."""
+    from .data.forcing import NetCDFForcingProvider, SyntheticForcingProvider
+    if cfg.forcing == "pgf" and cfg.forcing_path:
+        return NetCDFForcingProvider(cfg.forcing_path, grid, dtype=dtype,
+                                     device=device)
+    return SyntheticForcingProvider(grid.n_padded, seed=0,
+                                    lat=grid.cell_lat, dtype=dtype,
+                                    device=device)
+
+
+def _stacked_forcing(cfg, grid, n_days: int, dtype, device):
+    """A ``[days, n]`` Forcing of the Config's start year from 1 January,
+    on ``device``."""
+    provider = _single_host_provider(cfg, grid, dtype, device)
+    return provider(cfg.start_year, 1, n_days)
+
+
+def _gather_host(x: torch.Tensor):
+    """A host numpy copy of a diagnostics-sized tensor."""
+    return x.detach().cpu().numpy()
+
+
+def _global_problem(args: argparse.Namespace):
+    """``(cfg, device, dtype, grid, params, state0, geom)`` of a closed-loop
+    command on the Config file ``args.config``."""
+    from .config import Config
+    from .data.soil import load_soil
+    from .physics.hydrology import Geometry
+    from .run import resolve_device
+    from .state import initial_state
+
+    with open(args.config) as f:
+        cfg = Config.from_json(f.read())
+    device = resolve_device(args.device)
+    dtype = getattr(torch, cfg.dtype)
+    grid, params = load_soil(cfg, dtype, device)
+    lg = cfg.layer_grid()
+    state0 = initial_state(params, lg.dz, lg.zi, dtype, device)
+    return cfg, device, dtype, grid, params, state0, \
+        Geometry.from_layer_grid(lg)
+
+
+def _observations(args, grid, ndays: int, dtype, device):
+    """``(obs, mask)`` of ``--obs-npz`` as ``[days, n]`` tensors (the
+    padding lanes masked), or ``(None, mask)`` without one."""
+    import numpy as np
+    n = grid.n_padded
+    mask = np.zeros((ndays, n), bool)
+    mask[:, :grid.n_land] = True       # padding lanes carry no obs
+    obs = None
+    if args.obs_npz:
+        with np.load(args.obs_npz) as d:
+            et = np.asarray(d["et"], np.float64)
+            if et.shape != (ndays, grid.n_land):
+                raise SystemExit(
+                    f"--obs-npz et shape {et.shape} != "
+                    f"({ndays}, {grid.n_land}) (days, n_land)")
+            full = np.zeros((ndays, n))
+            full[:, :grid.n_land] = et
+            if "mask" in d:
+                mask[:, :grid.n_land] &= np.asarray(d["mask"], bool)
+        obs = torch.tensor(full, dtype=dtype, device=device)
+    return obs, mask
+
+
+def cmd_calibrate_global(args: argparse.Namespace) -> int:
+    """Calibrate the real configured model (``--config``): the
+    ``load_soil`` parameters on the packed grid, optionally one multiplier
+    per cell (a spatial inversion).
+
+    Observations: ``--obs-npz`` (arrays ``et`` [days, n_land], optional
+    ``mask``) or ``--obs-twin LOGMULT`` (a twin experiment: observations
+    made by the model under a known log-multiplier, fitted from zero).
+    The fit differentiates the plain day on the run's device; a default
+    fit at 0.5 degrees (60 days, 100 steps) takes hours on the card (PERF.md).
+    """
+    import json
+
+    import numpy as np
+
+    from .calibrate import CalibrationSpec, calibrate, simulate_daily_et
+
+    if args.shard:
+        waits("calibrate --shard", "A9 (multi-device)")
+    cfg, device, dtype, grid, params, state0, geom = _global_problem(args)
+    ndays = args.days
+    forcing = _stacked_forcing(cfg, grid, ndays, dtype, device)
+    n = grid.n_padded
+    fields = tuple(args.fields.split(","))
+    spec = CalibrationSpec(fields=fields, per_cell=args.per_cell)
+    obs, mask = _observations(args, grid, ndays, dtype, device)
+    if obs is None and args.obs_twin is not None:
+        true_theta = {f: torch.full((n,) if args.per_cell else (),
+                                    float(args.obs_twin), dtype=dtype,
+                                    device=device)
+                      for f in fields}
+        with torch.no_grad():
+            obs = simulate_daily_et(true_theta, params, state0, forcing,
+                                    geom, cfg.nisurf)
+        log.info("twin experiment: obs generated at log-multiplier "
+                 "%.3f on %s", args.obs_twin, ",".join(fields))
+    elif obs is None:
+        raise SystemExit("global calibrate needs --obs-npz or --obs-twin")
+
+    res = calibrate(params, state0, forcing, geom, obs, spec=spec,
+                    nisurf=cfg.nisurf, steps=args.steps,
+                    learning_rate=args.lr,
+                    obs_mask=torch.tensor(mask, device=device))
+    hist = _gather_host(res.loss_history)
+    log.info("global calibrate: %d cells (%d land), %d days, "
+             "per_cell=%s, sharded=%s, loss %.4g -> %.4g (%d steps)",
+             n, grid.n_land, ndays, args.per_cell, False, hist[0],
+             hist[-1], args.steps)
+    theta_np = {k: _gather_host(v) for k, v in res.theta.items()}
+    if args.obs_twin is not None:
+        for k, v in theta_np.items():
+            land = v[:grid.n_land] if v.ndim else v
+            log.info("  %s: fitted log-mult mean %.4f (true %.4f)",
+                     k, float(np.mean(land)), args.obs_twin)
+    if args.out:
+        if args.per_cell:
+            np.savez(args.out,
+                     **{k: np.exp(v) for k, v in theta_np.items()},
+                     loss_history=hist, n_land=grid.n_land)
+        else:
+            with open(args.out, "w") as f:
+                json.dump({"multipliers": {k: float(np.exp(v))
+                                           for k, v in theta_np.items()},
+                           "loss_initial": float(hist[0]),
+                           "loss_final": float(hist[-1])}, f, indent=2)
+        log.info("wrote %s", args.out)
+    return 0
+
+
+def cmd_ensemble(args: argparse.Namespace) -> int:
+    """Run a parameter-perturbed ensemble of the configured year with the
+    members folded into the cell axis (ensemble.py) and write spread
+    diagnostics: the one-command form of the reference's one-SLURM-job-
+    per-member workflow (notes.txt's /save1../save6 output dirs diffed by
+    hand).  On the card each day is one launch of the day kernel at
+    ``members x cells``."""
+    import numpy as np
+
+    from . import calendar
+    from .ensemble import perturbed_multipliers, run_ensemble_annual
+    from .io import netcdf
+
+    if args.shard:
+        waits("ensemble --shard", "A9 (multi-device)")
+    cfg, device, dtype, grid, params, state0, geom = _global_problem(args)
+    ndays = args.days or calendar.days_in_year(cfg.start_year)
+    forcing = _stacked_forcing(cfg, grid, ndays, dtype, device)
+    fields = tuple(args.fields.split(","))
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    theta = perturbed_multipliers(generator, args.members, fields=fields,
+                                  sigma=args.sigma, dtype=dtype)
+    t0 = time.perf_counter()
+    out = run_ensemble_annual(theta, params, state0, forcing, geom,
+                              nisurf=cfg.nisurf, vegetation=cfg.vegetation,
+                              use_kernel=cfg.use_kernel,
+                              zd09_every=cfg.zd09_every)
+    # The host copy closes the timed region.
+    out = {k: _gather_host(v) for k, v in out.items()}
+    elapsed = time.perf_counter() - t0
+    log.info(ENSEMBLE_LOG, args.members, grid.n_padded, ndays, elapsed,
+             device)
+
+    fields_nc = {}
+    for name, stacked in out.items():
+        mean = np.mean(stacked, axis=0)
+        std = np.std(stacked, axis=0)
+        fields_nc[f"{name}_mean"] = grid.scatter(mean.astype(np.float64))
+        fields_nc[f"{name}_std"] = grid.scatter(std.astype(np.float64))
+        fields_nc[f"{name}_control"] = grid.scatter(
+            stacked[0].astype(np.float64))        # member 0 = control
+    path = args.out or "ensemble.nc"
+    netcdf.write_grid_file(path, fields_nc, grid.lon, grid.lat)
+    log.info("wrote %s (%d members, sigma=%.2f on %s)", path,
+             args.members, args.sigma, ",".join(fields))
+    return 0
+
+
+def cmd_calibrate(args: argparse.Namespace) -> int:
+    """Fit soil-parameter multipliers to observed daily ET by adjoint
+    (calibrate.py): the closed-loop form of the reference's manual LCLIM
+    model-vs-obs comparison (HYBRID9.f90:449; notes.txt's hand parameter
+    sweeps).  Runs on the single-column site configuration, or on the
+    real configured global model with ``--config``
+    (:func:`cmd_calibrate_global`)."""
+    if args.config:
+        return cmd_calibrate_global(args)
+    import json
+
+    import numpy as np
+
+    from .calibrate import CalibrationSpec, calibrate
+    from .config import Config
+    from .data.synthetic import synthetic_forcing_day, synthetic_soil_params
+    from .physics import reference_column as ref
+    from .physics.hydrology import Geometry
+    from .run import resolve_device
+    from .site import (_kernel_soil_params, _split_obs,
+                       read_site_climate_csv, read_site_subdaily_csv)
+    from .state import Forcing, initial_state
+
+    cfg = Config(nisurf=args.nisurf)
+    grid = cfg.layer_grid()
+    device = resolve_device(args.device)
+
+    # Forcing record: site climate CSV or one synthetic year.
+    if args.climate:
+        climate = read_site_climate_csv(args.climate)
+    else:
+        climate = [
+            ref.DailyForcing(**{k: float(v[0]) for k, v in
+                                synthetic_forcing_day(
+                                    1, d + 1, seed=17,
+                                    lat=np.array([cfg.site_lat])).items()})
+            for d in range(365)]
+    ndays = len(climate)
+    dtype = getattr(torch, cfg.dtype)
+    keys = ("tas", "rlds", "rsds", "huss", "ps", "pr", "rhs")
+    forcing = Forcing(**{
+        k: torch.tensor(np.array([[getattr(d, k)] for d in climate]),
+                        dtype=dtype, device=device) for k in keys})
+
+    # Observations: --obs CSV (doy, evap_obs in mm/day) or the evap_obs
+    # column of a sub-daily LCLIM CSV summed to daily.
+    obs_by_doy = {}
+    if args.obs:
+        import csv
+        with open(args.obs) as f:
+            for row in csv.DictReader(f):
+                obs_by_doy[int(row["doy"])] = float(row["evap_obs"])
+    elif args.subdaily:
+        sub = read_site_subdaily_csv(args.subdaily, cfg.nisurf)
+        _, obs_by_doy = _split_obs(sub)
+    else:
+        raise SystemExit("calibrate needs --obs or --subdaily "
+                         "(observed daily ET)")
+    obs = np.zeros((ndays, 1))
+    mask = np.zeros((ndays, 1), bool)
+    for doy, v in obs_by_doy.items():
+        if 1 <= doy <= ndays:
+            obs[doy - 1, 0] = v
+            mask[doy - 1, 0] = True
+    if not mask.any():
+        raise SystemExit("no usable observations in the record")
+
+    nl = grid.nsoil
+    raw = synthetic_soil_params(1, seed=17, n_layers=nl)
+    col = ref.ColumnParams(
+        theta_s=raw["theta_s"][0], hksat=raw["hksat"][0],
+        bsw=raw["bsw"][0], psi_s=raw["psi_s"][0],
+        fmax=float(raw["fmax"][0]))
+    params = _kernel_soil_params(col, dtype, device)
+    state0 = initial_state(params, grid.dz, grid.zi, dtype, device)
+    geom = Geometry.from_layer_grid(grid)
+
+    spec = CalibrationSpec(fields=tuple(args.fields.split(",")))
+    res = calibrate(params, state0, forcing, geom,
+                    torch.tensor(obs, dtype=dtype, device=device),
+                    spec=spec, nisurf=cfg.nisurf, steps=args.steps,
+                    learning_rate=args.lr,
+                    obs_mask=torch.tensor(mask, device=device))
+    hist = _gather_host(res.loss_history)
+    multipliers = {k: float(np.exp(_gather_host(v)))
+                   for k, v in res.theta.items()}
+    log.info("calibrate: %d obs days, loss %.4g -> %.4g (%d steps)",
+             int(mask.sum()), hist[0], hist[-1], args.steps)
+    for k, m in multipliers.items():
+        log.info("  %s multiplier: %.4f", k, m)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"multipliers": multipliers,
+                       "loss_initial": float(hist[0]),
+                       "loss_final": float(hist[-1]),
+                       "steps": args.steps,
+                       "obs_days": int(mask.sum())}, f, indent=2)
+        log.info("wrote %s", args.out)
+    return 0
+
+
+def cmd_assimilate(args: argparse.Namespace) -> int:
+    """Sequential EnSRF data assimilation on the real configured model
+    (assimilate.py): a parameter-perturbed ensemble forecasts each day (on
+    the card one launch of the day kernel at ``members x cells``), and a
+    cell-local scalar-observation square-root analysis updates the soil
+    water and per-cell hksat log-multipliers from observed daily ET: the
+    closed-loop form of the reference's only use of observations, the
+    visual LCLIM model-vs-obs comparison (HYBRID9.f90:449).
+
+    Observations: ``--obs-npz`` (arrays ``et`` [days, n_land], optional
+    ``mask``) or ``--obs-twin LOGMULT`` (a twin experiment: observations
+    made by the model under a known hksat log-multiplier)."""
+    import numpy as np
+
+    from .assimilate import EnKFConfig, assimilate
+    from .calibrate import simulate_daily_et
+
+    if args.shard:
+        waits("assimilate --shard", "A9 (multi-device)")
+    cfg, device, dtype, grid, params, state0, geom = _global_problem(args)
+    ndays = args.days
+    forcing = _stacked_forcing(cfg, grid, ndays, dtype, device)
+    n = grid.n_padded
+    obs, mask = _observations(args, grid, ndays, dtype, device)
+    if obs is None and args.obs_twin is not None:
+        true_theta = {"hksat": torch.full((), float(args.obs_twin),
+                                          dtype=dtype, device=device)}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            obs = simulate_daily_et(true_theta, params, state0, forcing,
+                                    geom, cfg.nisurf,
+                                    vegetation=cfg.vegetation)
+        log.info(TWIN_LOG, args.obs_twin, time.perf_counter() - t0)
+    elif obs is None:
+        raise SystemExit("assimilate needs --obs-npz or --obs-twin")
+
+    t0 = time.perf_counter()
+    res = assimilate(params, state0, forcing, obs, geom,
+                     n_members=args.members, nisurf=cfg.nisurf,
+                     obs_mask=torch.tensor(mask, device=device),
+                     theta_spread=args.spread, seed=args.seed,
+                     vegetation=cfg.vegetation, use_kernel=cfg.use_kernel,
+                     zd09_every=cfg.zd09_every,
+                     cfg=EnKFConfig(obs_err_std=args.obs_err,
+                                    rtps=args.rtps))
+    tm = _gather_host(res["theta_mean"])
+    elapsed = time.perf_counter() - t0
+    ts = _gather_host(res["theta_std"])
+    y_pred = _gather_host(res["y_pred_mean"])
+    obs_h = _gather_host(obs)
+    # Innovation statistics over OBSERVED land entries only: masked-out
+    # cells and days carry meaningless obs values.
+    err = np.abs(y_pred - obs_h)[:, :grid.n_land]
+    err = np.where(mask[:, :grid.n_land], err, np.nan)
+    with np.errstate(invalid="ignore"):
+        early = float(np.nanmean(err[:max(1, ndays // 5)]))
+        late = float(np.nanmean(err[-max(1, ndays // 5):]))
+    log.info("assimilate: %d members x %d cells x %d days in %.2fs "
+             "(device %s); posterior hksat log-mult mean %.4f (spread "
+             "%.4f -> %.4f); ET innovation %.4g -> %.4g mm/day",
+             args.members, n, ndays, elapsed, device,
+             float(np.mean(tm[:grid.n_land])), args.spread,
+             float(np.median(ts[:grid.n_land])), early, late)
+    if args.obs_twin is not None:
+        log.info("  true log-multiplier: %.4f", args.obs_twin)
+    if args.out:
+        np.savez(args.out, theta_mean=tm[:grid.n_land],
+                 theta_std=ts[:grid.n_land],
+                 hksat_multiplier=np.exp(tm[:grid.n_land]),
+                 y_pred_mean=y_pred[:, :grid.n_land],
+                 n_land=grid.n_land)
+        log.info("wrote %s", args.out)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -273,20 +642,107 @@ def main(argv=None) -> int:
     pi = sub.add_parser("info", help="version and device info")
     pi.set_defaults(fn=cmd_info)
 
-    for command, item, text in (
-            ("calibrate", "A8 (ensembles, DA and calibration)",
-             "fit soil parameters to observed ET"),
-            ("ensemble", "A8 (ensembles, DA and calibration)",
-             "parameter-perturbed ensemble of a configured year"),
-            ("assimilate", "A8 (ensembles, DA and calibration)",
-             "EnSRF data assimilation of observed daily ET")):
-        ps = sub.add_parser(command, help=f"{text} (ROADMAP {item[:2]})")
-        ps.set_defaults(fn=_not_ported(command, item), any_arguments=True)
+    pc = sub.add_parser("calibrate",
+                        help="fit soil parameters to observed ET "
+                             "(adjoint/Adam; single column, or the "
+                             "real global model with --config)")
+    pc.add_argument("--config", default=None,
+                    help="global Config JSON: calibrate the real "
+                         "load_soil parameter set on the packed grid "
+                         "instead of a synthetic column")
+    pc.add_argument("--per-cell", action="store_true",
+                    help="(global mode) one multiplier per cell "
+                         "(spatial inversion) instead of one scalar "
+                         "per field")
+    pc.add_argument("--shard", action="store_true",
+                    help="(global mode) cell-sharded fit (ROADMAP A9)")
+    pc.add_argument("--days", type=int, default=60,
+                    help="(global mode) days of forcing in the fit "
+                         "window")
+    pc.add_argument("--obs-npz",
+                    help="(global mode) observations: npz with 'et' "
+                         "[days, n_land] (mm/day) and optional 'mask'")
+    pc.add_argument("--obs-twin", type=float, default=None,
+                    metavar="LOGMULT",
+                    help="(global mode) twin experiment: generate obs "
+                         "from the model under this known log-"
+                         "multiplier and fit from zero")
+    pc.add_argument("--climate", help="daily climate CSV (site format)")
+    pc.add_argument("--obs", help="observed daily ET CSV (doy, evap_obs "
+                                  "in mm/day)")
+    pc.add_argument("--subdaily",
+                    help="sub-daily LCLIM CSV; its evap_obs column is "
+                         "summed to daily observations")
+    pc.add_argument("--fields", default="hksat,bsw,psi_s",
+                    help="comma-separated parameters to fit")
+    pc.add_argument("--steps", type=int, default=100)
+    pc.add_argument("--lr", type=float, default=0.1)
+    pc.add_argument("--nisurf", type=int, default=48)
+    pc.add_argument("--out", default=None,
+                    help="write fitted multipliers to this JSON file "
+                         "(an npz with --per-cell)")
+    pc.add_argument("--device", default=None,
+                    help="torch device of the fit (default: the card)")
+    pc.set_defaults(fn=cmd_calibrate)
 
-    # A command that is not ported yet raises whatever its arguments.
-    args, rest = p.parse_known_args(argv)
-    if rest and not getattr(args, "any_arguments", False):
-        p.error(f"unrecognized arguments: {' '.join(rest)}")
+    pe = sub.add_parser("ensemble",
+                        help="parameter-perturbed ensemble of a "
+                             "configured year, members folded into the "
+                             "cell axis")
+    pe.add_argument("--config", required=True, help="Config JSON file")
+    pe.add_argument("--members", type=int, default=8)
+    pe.add_argument("--sigma", type=float, default=0.3,
+                    help="log-normal multiplier spread")
+    pe.add_argument("--seed", type=int, default=0)
+    pe.add_argument("--fields", default="hksat,bsw,psi_s",
+                    help="comma-separated parameters to perturb")
+    pe.add_argument("--days", type=int, default=None,
+                    help="days to integrate (default: the full start "
+                         "year)")
+    pe.add_argument("--shard", action="store_true",
+                    help="cell-sharded ensemble (ROADMAP A9)")
+    pe.add_argument("--out", default=None,
+                    help="spread-diagnostics NetCDF (default "
+                         "ensemble.nc)")
+    pe.add_argument("--device", default=None,
+                    help="torch device of the run (default: the card)")
+    pe.set_defaults(fn=cmd_ensemble)
+
+    pa = sub.add_parser("assimilate",
+                        help="sequential EnSRF data assimilation of "
+                             "observed daily ET (ensemble square-root "
+                             "filter; updates soil water + per-cell "
+                             "hksat multipliers)")
+    pa.add_argument("--config", required=True, help="Config JSON file")
+    pa.add_argument("--days", type=int, default=25,
+                    help="days of forcing/observations to assimilate")
+    pa.add_argument("--members", type=int, default=16,
+                    help="ensemble width")
+    pa.add_argument("--obs-npz",
+                    help="observations: npz with 'et' [days, n_land] "
+                         "(mm/day) and optional 'mask'")
+    pa.add_argument("--obs-twin", type=float, default=None,
+                    metavar="LOGMULT",
+                    help="twin experiment: generate obs from the model "
+                         "under this known hksat log-multiplier")
+    pa.add_argument("--spread", type=float, default=0.3,
+                    help="initial std of the hksat log-multiplier "
+                         "ensemble")
+    pa.add_argument("--obs-err", type=float, default=0.1,
+                    help="observation error std (mm/day)")
+    pa.add_argument("--rtps", type=float, default=0.6,
+                    help="relaxation-to-prior-spread coefficient")
+    pa.add_argument("--shard", action="store_true",
+                    help="cell-sharded filter (ROADMAP A9)")
+    pa.add_argument("--seed", type=int, default=0)
+    pa.add_argument("--out", default=None,
+                    help="write posterior npz (theta_mean/theta_std/"
+                         "hksat_multiplier per land cell)")
+    pa.add_argument("--device", default=None,
+                    help="torch device of the run (default: the card)")
+    pa.set_defaults(fn=cmd_assimilate)
+
+    args = p.parse_args(argv)
     return args.fn(args)
 
 

@@ -1,0 +1,182 @@
+"""Parameter ensembles for uncertainty quantification.
+
+Port of ``hybrid9_tpu/ensemble.py``.  A parameter-perturbed ensemble is
+"more cells" with per-member parameters: the member axis is folded into
+the packed cell axis, so every member of every cell goes through one
+day step, and on the card through one launch of the CUDA day kernel a
+day, at the folded width.  The reference ran one SLURM job per member and
+diffed the output directories by hand (reference notes.txt Nov-Dec 2016).
+
+The fold is CELL-MAJOR: folded index ``j = cell*m + member``, made by
+``torch.repeat_interleave(x, m, dim=0)`` (the JAX package's
+``jnp.repeat``), with the per-member multipliers tiled by ``v.repeat(n)``
+(torch's ``repeat`` is JAX's ``tile``).  Cells are independent in the day,
+so each member's trajectory is that of an unfolded run under its own
+parameters.  Member 0 is always the control.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Sequence, Tuple
+
+import torch
+
+from .calibrate import CALIBRATABLE, apply_multipliers
+from .physics import constants as c
+from .physics.hydrology import Geometry
+from .state import Forcing, ModelState, SoilParams
+from .step import day_step
+
+
+def perturbed_multipliers(generator: torch.Generator,
+                          n_members: int,
+                          fields: Sequence[str] = ("hksat", "psi_s",
+                                                   "bsw"),
+                          sigma: float = 0.3,
+                          dtype: torch.dtype = torch.float32
+                          ) -> Dict[str, torch.Tensor]:
+    """Log-normal multiplier ensemble: ``[n_members]`` per field, drawn
+    from ``generator`` on its device, one field after another (the JAX
+    package drew each field from its own key of ``jax.random``).
+
+    Member 0 is always the unperturbed control (theta = 0), so the control
+    trajectory is recoverable from every ensemble run.
+    """
+    for f in fields:
+        if f not in CALIBRATABLE:
+            raise ValueError(f"{f} is not calibratable "
+                             f"(allowed: {CALIBRATABLE})")
+    theta = {}
+    for f in fields:
+        t = sigma * torch.randn((n_members,), generator=generator,
+                                dtype=dtype, device=generator.device)
+        t[0] = 0.0
+        theta[f] = t
+    return theta
+
+
+class EnsembleResult(NamedTuple):
+    """Stacked outputs, member axis leading."""
+
+    evap: torch.Tensor       # [members, days, n] daily ET        (mm/day)
+    runoff: torch.Tensor     # [members, days, n] daily runoff    (mm/day)
+    npp: torch.Tensor        # [members, days, n] daily NPP  (g DM/plant)
+    final_states: ModelState  # member-stacked end states [members, n, ...]
+
+
+def _members(theta: Dict[str, torch.Tensor]) -> int:
+    return len(next(iter(theta.values())))
+
+
+def fold(x: torch.Tensor, m: int) -> torch.Tensor:
+    """The cell-major fold of a per-cell tensor: ``[n, ...]`` ->
+    ``[n*m, ...]`` with row ``cell*m + member`` a copy of row ``cell``."""
+    return torch.repeat_interleave(x, m, dim=0)
+
+
+def unfold(x: torch.Tensor, m: int) -> torch.Tensor:
+    """The inverse view of :func:`fold`: ``[n*m, ...]`` -> ``[m, n, ...]``."""
+    return x.reshape(x.shape[0] // m, m, *x.shape[1:]).transpose(0, 1)
+
+
+def _fold_problem(theta, params, state0, m):
+    """Folded params (multipliers applied, member ``j % m``'s to cell
+    ``j``) and folded state."""
+    n = state0.veg.lai.shape[0]
+    params_m = apply_multipliers(
+        params.map(lambda x: fold(x, m)),
+        {f: v.repeat(n) for f, v in theta.items()})
+    return params_m, state0.map(lambda x: fold(x, m))
+
+
+def run_ensemble(theta: Dict[str, torch.Tensor],
+                 params: SoilParams,
+                 state0: ModelState,
+                 forcing_days: Forcing,
+                 geom: Geometry,
+                 nisurf: int = c.NISURF_DEFAULT,
+                 vegetation: bool = True,
+                 use_kernel=None,
+                 zd09_every: int = 1) -> EnsembleResult:
+    """Integrate all members of a parameter ensemble and keep the dailies.
+
+    ``theta``: per-field ``[n_members]`` log-multipliers (e.g. from
+    :func:`perturbed_multipliers`).  All members share ``state0`` and the
+    forcing.  The JAX package vmapped the members; here they are folded
+    into the cell axis and the outputs unfolded to ``[members, days, n]``.
+    ``use_kernel`` as in ``step.day_step`` (the kernel on CUDA tensors).
+    """
+    dt = c.SDAY / nisurf
+    m = _members(theta)
+    params_m, state = _fold_problem(theta, params, state0, m)
+    evap, rnf, npp = [], [], []
+    for d in range(forcing_days.tas.shape[0]):
+        f_m = forcing_days.map(lambda x: fold(x[d], m))
+        state, diags = day_step(state, f_m, params_m, geom, dt, nisurf,
+                                use_kernel=use_kernel,
+                                zd09_every=zd09_every, vegetation=vegetation)
+        evap.append(unfold(diags["evap_day"], m))
+        rnf.append(unfold(diags["rnf_day"], m))
+        npp.append(unfold(diags["npp"], m))
+    return EnsembleResult(
+        evap=torch.stack(evap, dim=1), runoff=torch.stack(rnf, dim=1),
+        npp=torch.stack(npp, dim=1),
+        final_states=state.map(lambda x: unfold(x, m)))
+
+
+def ensemble_spread(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, std) over the member axis of a stacked diagnostic; the std
+    divides by the number of members, as ``jnp.std`` does."""
+    return torch.mean(x, dim=0), torch.std(x, dim=0, correction=0)
+
+
+def run_ensemble_annual(theta: Dict[str, torch.Tensor],
+                        params: SoilParams,
+                        state0: ModelState,
+                        forcing_days: Forcing,
+                        geom: Geometry,
+                        nisurf: int = c.NISURF_DEFAULT,
+                        vegetation: bool = True,
+                        use_kernel=None,
+                        zd09_every: int = 1
+                        ) -> Dict[str, torch.Tensor]:
+    """Ensemble with annual totals only: memory O(members x cells).
+
+    The production-scale form of :func:`run_ensemble`: the day loop
+    carries running sums instead of stacking ``[members, days, n]``
+    dailies, and the members ride the folded cell axis, so on CUDA tensors
+    each day is one launch of the day kernel at ``members x cells``.  The
+    forcing is folded one day at a time inside the loop, so the device
+    holds one ``[days, n]`` block whatever the ensemble size.  (The JAX
+    package's ``sharding=`` waits for ROADMAP A9.)
+
+    Returns ``{"evap", "runoff", "npp"}`` as ``[members, n]`` totals
+    (mm and g DM).
+    """
+    dt = c.SDAY / nisurf
+    m = _members(theta)
+    n = state0.veg.lai.shape[0]
+    params_m, state_m = _fold_problem(theta, params, state0, m)
+    ev, rn, np_ = _run_annual_folded(state_m, forcing_days, params_m, geom,
+                                     dt, m, nisurf, vegetation, use_kernel,
+                                     zd09_every)
+    # [n*m] -> [n, m] -> the [m, n] contract.
+    return dict(evap=ev.reshape(n, m).T, runoff=rn.reshape(n, m).T,
+                npp=np_.reshape(n, m).T)
+
+
+def _run_annual_folded(state_m, forcing_days, params_m, geom, dt, m,
+                       nisurf, vegetation, use_kernel, zd09_every):
+    """The folded day loop of :func:`run_ensemble_annual`: each day's
+    ``[n]`` forcing folded to ``[n*m]``, one day step, the sums."""
+    ev = rn = np_ = torch.zeros_like(state_m.veg.lai)
+    for d in range(forcing_days.tas.shape[0]):
+        f_m = forcing_days.map(lambda x: fold(x[d], m))
+        state_m, diags = day_step(state_m, f_m, params_m, geom, dt, nisurf,
+                                  use_kernel=use_kernel,
+                                  zd09_every=zd09_every,
+                                  vegetation=vegetation)
+        ev = ev + diags["evap_day"]
+        rn = rn + diags["rnf_day"]
+        np_ = np_ + diags["npp"]
+    return ev, rn, np_

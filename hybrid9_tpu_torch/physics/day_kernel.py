@@ -250,6 +250,9 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
     after each substep into ``wt_substeps``, a runtime argument of the
     same instance: every other output is bitwise that of the day without.
 
+    The kernel has no backward: under autograd, an input that requires a
+    gradient raises (``use_kernel=False`` differentiates the plain day).
+
     The kernel takes the state as the model holds it: layered fields
     ``[n, nl]``, contiguous or slab views ``x[lo:hi]`` (see
     :func:`cell_stride`; anything else raises), and the raw forcing, from
@@ -286,6 +289,14 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
            ("fmax", params.fmax, False), ("imp", imp, True)] + \
           [(k, getattr(forcing, k), False) for k in _FORCING_KEYS] + \
           [("sw_abs", sw_abs, False)]
+    if torch.is_grad_enabled():
+        tracked = [name for name, x, _ in ins
+                   if x is not None and x.requires_grad]
+        if tracked:
+            raise RuntimeError(
+                f"day kernel: {', '.join(tracked)} require a gradient, and "
+                f"the kernel has no backward; differentiate the plain day "
+                f"with use_kernel=False")
     strides = [0 if x is None else
                cell_stride(x, name, n, nl if layered else None, dtype,
                            device) for name, x, layered in ins]

@@ -13,6 +13,7 @@ from typing import List, NamedTuple
 
 import torch
 
+from . import bounds
 from . import constants as c
 from .soilwater import water_table_index
 
@@ -32,7 +33,7 @@ def _specific_yield(theta_s_l: torch.Tensor, psi_s_l: torch.Tensor,
     """Analytical specific yield, floored at 0.02 (HYDROLOGY.f90:
     937-941)."""
     s_y = theta_s_l * (1.0 - (1.0 + zwtmm / (-psi_s_l)) ** (-1.0 / bsw_l))
-    return torch.clamp(s_y, min=0.02)
+    return bounds.maximum(s_y, 0.02)
 
 
 def compute_specific_yields(zwt: torch.Tensor, theta_s: List[torch.Tensor],
@@ -87,7 +88,7 @@ def drainage(h2osoi: List[torch.Tensor], zwt: torch.Tensor,
     for i in range(nl - 1, -1, -1):
         act = rising & (jwt >= i) & (rem > 0.0)
         s_y = s_y_stale[i]
-        ql = torch.clamp(torch.minimum(rem, s_y * (zwtmm - zi[i])), min=0.0)
+        ql = bounds.maximum(torch.minimum(rem, s_y * (zwtmm - zi[i])), 0.0)
         zwt_w = torch.where(act, zwt_w - ql / s_y / 1000.0, zwt_w)
         rem = torch.where(act, rem - ql, rem)
 
@@ -96,8 +97,8 @@ def drainage(h2osoi: List[torch.Tensor], zwt: torch.Tensor,
     for i in range(nl):
         act = falling & (jwt <= i) & (rem_f < 0.0)
         s_y = s_y_stale[i]
-        ql = torch.clamp(torch.maximum(rem_f, -s_y * (zi[i + 1] - zwtmm)),
-                         max=0.0)
+        ql = bounds.minimum(torch.maximum(rem_f, -s_y * (zi[i + 1] - zwtmm)),
+                            0.0)
         rem_new = rem_f - ql
         zwt_w = torch.where(
             act,
@@ -119,7 +120,7 @@ def drainage(h2osoi: List[torch.Tensor], zwt: torch.Tensor,
     zwtmm1 = 1000.0 * zwt1
     # The exp argument is guarded against pathological negative tables.
     rsub_top = c.RSUB_TOP_MAX * torch.exp(
-        -c.FFF * torch.clamp(zwt1, min=-1.0))
+        -c.FFF * bounds.maximum(zwt1, -1.0))
     s_y_1 = s_y_prof if s_y_prof is not None else [
         _specific_yield(theta_s[i], psi_s[i], bsw[i], zwtmm1)
         for i in range(nl)]
@@ -133,9 +134,9 @@ def drainage(h2osoi: List[torch.Tensor], zwt: torch.Tensor,
     # into the bottom soil layer.
     wa_tmp = wa1 - rsub_top * dt
     zwt_b1 = zwt1 + (rsub_top * dt) / 1000.0 / rous1
-    spill = torch.clamp(wa_tmp - 5000.0, min=0.0)
+    spill = bounds.maximum(wa_tmp - 5000.0, 0.0)
     h[nl - 1] = h[nl - 1] + torch.where(below1, spill, 0.0)
-    wa_b1 = torch.clamp(wa_tmp, max=5000.0)
+    wa_b1 = bounds.minimum(wa_tmp, 5000.0)
     rnff[nl] = torch.where(below1, rsub_top, 0.0)
 
     # Inside the column: remove baseflow from saturated layers, walking
@@ -145,8 +146,8 @@ def drainage(h2osoi: List[torch.Tensor], zwt: torch.Tensor,
     for i in range(nl):
         act = in_col1 & (jwt1 <= i) & (rem_b < 0.0)
         s_y = s_y_1[i]
-        ql = torch.clamp(
-            torch.maximum(rem_b, -(s_y * (zi[i + 1] - zwtmm1))), max=0.0)
+        ql = bounds.minimum(
+            torch.maximum(rem_b, -(s_y * (zi[i + 1] - zwtmm1))), 0.0)
         h[i] = h[i] + torch.where(act, ql, 0.0)
         rnff[i] = torch.where(act, -ql, rnff[i])
         rem_new = rem_b - ql
@@ -165,19 +166,19 @@ def drainage(h2osoi: List[torch.Tensor], zwt: torch.Tensor,
     jwt2 = torch.where(below1, jwt1, water_table_index(zwt2, zi))
 
     # Clamps (HYDROLOGY.f90:1122-1123).
-    zwt2 = torch.clamp(zwt2, 0.0, 80.0)
+    zwt2 = bounds.clip(zwt2, 0.0, 80.0)
 
     # --- Saturation-excess bucket cascade, bottom-up
     # (HYDROLOGY.f90:1131-1137).
     for i in range(nl - 1, 0, -1):
         cap = eff_porosity[i] * dz_soil[i]
-        xsi = torch.clamp(h[i] - cap, min=0.0)
+        xsi = bounds.maximum(h[i] - cap, 0.0)
         h[i] = torch.minimum(cap, h[i])
         h[i - 1] = h[i - 1] + xsi
 
     # Top-layer excess to drainage (HYDROLOGY.f90:1144-1152).
-    cap0 = torch.clamp(theta_s[0] * dz_soil[0], min=0.0)
-    xs1 = torch.clamp(torch.clamp(h[0], min=0.0) - cap0, min=0.0)
+    cap0 = bounds.maximum(theta_s[0] * dz_soil[0], 0.0)
+    xs1 = bounds.maximum(bounds.maximum(h[0], 0.0) - cap0, 0.0)
     h[0] = torch.minimum(cap0, h[0])
     qflx_rsub_sat = xs1 / dt
 
@@ -194,7 +195,7 @@ def drainage(h2osoi: List[torch.Tensor], zwt: torch.Tensor,
     # --- Bottom layer: search upward for water (HYDROLOGY.f90:1180-1211).
     xs = torch.where(h[nl - 1] < c.WATMIN, c.WATMIN - h[nl - 1], 0.0)
     for j in range(nl - 2, -1, -1):
-        avail = torch.clamp(h[j] - c.WATMIN - xs, min=0.0)
+        avail = bounds.maximum(h[j] - c.WATMIN - xs, 0.0)
         take = torch.minimum(xs, avail)
         h[nl - 1] = h[nl - 1] + take
         h[j] = h[j] - take

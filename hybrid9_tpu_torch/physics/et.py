@@ -13,6 +13,7 @@ from typing import Dict, List, NamedTuple
 
 import torch
 
+from . import bounds
 from . import constants as c
 
 
@@ -51,7 +52,7 @@ def daily_et_context(fd: Dict[str, torch.Tensor], lai: torch.Tensor
     rho = a["rho"]
     lai_safe = torch.where(lai > 0.0, lai, 1.0)
     # Stomatal VPD attenuation (HYDROLOGY.f90:283-295).
-    vpd_att = 2.8 ** (-80.0 * torch.clamp(a["vdd"], min=0.0) / rho)
+    vpd_att = 2.8 ** (-80.0 * bounds.maximum(a["vdd"], 0.0) / rho)
     # Baldocchi et al. (2004) minimum resistance.
     rsc_min = 1.0 / ((lai_safe / 2.7) * 0.9 / (rho * 1.0e3 / 18.0))
     # Boundary/aerodynamic resistances (SW85 Eqns 20, 30, 31).
@@ -94,7 +95,7 @@ def dual_source_et(theta: List[torch.Tensor], theta_s: List[torch.Tensor],
     beta = None
     for i in range(len(rootr)):
         beta_l = 1.0 - (smp_prev[i] - zc_soil[i]) / (-150000.0)
-        term = rootr[i] * torch.clamp(beta_l, 0.0, 1.0)
+        term = rootr[i] * bounds.clip(beta_l, 0.0, 1.0)
         beta = term if beta is None else beta + term
 
     # Canopy stomatal resistance, guarded against LAI/beta/PAR = 0.
@@ -111,7 +112,7 @@ def dual_source_et(theta: List[torch.Tensor], theta_s: List[torch.Tensor],
     # Baldocchi et al. (2004) minimum (HYDROLOGY.f90:295).
     rsc = torch.where(lai > 0.0, torch.maximum(rsc, ctx["rsc_min"]), rsc)
     # Cap: 1e8 s/m is already a hermetically closed canopy.
-    rsc = torch.clamp(rsc, max=c.RSC_MAX)
+    rsc = bounds.minimum(rsc, c.RSC_MAX)
 
     rac, raa, ras = ctx["rac"], ctx["raa"], ctx["ras"]
 
@@ -155,7 +156,7 @@ def dual_source_et(theta: List[torch.Tensor], theta_s: List[torch.Tensor],
     # Limit substrate evaporation to available top-layer water
     # (HYDROLOGY.f90:396-400).
     evap_max1 = dz0 * (th0 - c.WATMIN) / dt - qflx_tran_veg * rootr[0]
-    evap_max1 = torch.clamp(evap_max1, min=0.0)
+    evap_max1 = bounds.maximum(evap_max1, 0.0)
     qflx_evap_grnd = torch.minimum(evap_max1, qflx_evap_grnd)
 
     return ETResult(qflx_tran_veg=qflx_tran_veg,

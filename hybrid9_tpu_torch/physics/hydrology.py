@@ -18,6 +18,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from . import bounds
 from . import constants as c
 from .drainage import drainage
 from .et import dual_source_et
@@ -98,13 +99,13 @@ def substep_values(h, smp_prev, zwt, wa, rootr, lai, lai_litter,
                         ctx=et_ctx)
 
     # Infiltration (HYDROLOGY.f90:426-478).
-    eff_porosity = [torch.clamp(ts, min=0.01) for ts in p_theta_s]
+    eff_porosity = [bounds.maximum(ts, 0.01) for ts in p_theta_s]
     qflx_in_soil = (qflx_top_soil - qflx_surf) - et.qflx_evap_grnd
     qinmax = (1.0 - fsat) * torch.minimum(
         torch.minimum(p_hksat[0], p_hksat[1]), p_hksat[2])
     if imp is not None:
         qinmax = qinmax * imp[0]
-    qflx_infl_excess = torch.clamp(qflx_in_soil - qinmax, min=0.0)
+    qflx_infl_excess = bounds.maximum(qflx_in_soil - qinmax, 0.0)
     qflx_infl = qflx_in_soil - qflx_infl_excess
     qflx_surf = qflx_surf + qflx_infl_excess
 

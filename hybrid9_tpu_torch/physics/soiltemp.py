@@ -16,6 +16,7 @@ from typing import List
 
 import torch
 
+from . import bounds
 from . import constants as c
 from .layers import stack, unstack
 from .soilwater import _thomas_solve
@@ -57,7 +58,7 @@ def soil_temperature_step(t_soil: torch.Tensor, theta: torch.Tensor,
     k_l: List[torch.Tensor] = []
     cv: List[torch.Tensor] = []
     for i in range(nl):
-        se = torch.clamp(th[i] / ts[i], 0.0, 1.0)
+        se = bounds.clip(th[i] / ts[i], 0.0, 1.0)
         k_l.append(K_DRY + (K_SAT - K_DRY) * se)
         cv.append(C_SOLID * (1.0 - ts[i]) + C_WATER * th[i])
 
@@ -147,9 +148,9 @@ def phase_change(t_soil: torch.Tensor, liq_mm: torch.Tensor,
     th_ice = ice_mm / (dz_m * 1000.0)
     hc = (C_SOLID * (1.0 - theta_s) + C_WATER * th_liq
           + C_ICE * th_ice) * dz_m                      # J/m^2/K
-    cold = torch.clamp(c.TF - t_soil, min=0.0)
-    warm = torch.clamp(t_soil - c.TF, min=0.0)
-    freeze = torch.minimum(torch.clamp(liq_mm - WATMIN, min=0.0),
+    cold = bounds.maximum(c.TF - t_soil, 0.0)
+    warm = bounds.maximum(t_soil - c.TF, 0.0)
+    freeze = torch.minimum(bounds.maximum(liq_mm - WATMIN, 0.0),
                            hc * cold / c.LFUS)
     melt = torch.minimum(ice_mm, hc * warm / c.LFUS)
     t_new = t_soil + (freeze - melt) * c.LFUS / hc
@@ -162,7 +163,7 @@ def freeze_impedance_from_ice(liq_mm: torch.Tensor, ice_mm: torch.Tensor,
     the CLM ``f = 10^(-omega * F_ice)`` (Swenson et al. 2012) with the
     ice mass fraction ``F_ice = ice / (liq + ice)``.  Ice-free soil
     returns exactly 1."""
-    f_ice = ice_mm / torch.clamp(liq_mm + ice_mm, min=1e-12)
+    f_ice = ice_mm / bounds.maximum(liq_mm + ice_mm, 1e-12)
     return torch.pow(10.0, -omega * f_ice)
 
 
@@ -174,5 +175,5 @@ def freeze_impedance(t_soil: torch.Tensor, omega: float = 6.0,
     an ice store.  It scales interface conductivity and the infiltration
     capacity in the substep, so water conservation is untouched.
     Unfrozen soil returns exactly 1."""
-    f_ice = torch.clamp((c.TF - t_soil) / ramp_k, 0.0, 1.0)
+    f_ice = bounds.clip((c.TF - t_soil) / ramp_k, 0.0, 1.0)
     return torch.pow(10.0, -omega * f_ice)

@@ -14,6 +14,7 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
+from . import bounds
 from . import constants as c
 from .layers import select_layer
 
@@ -67,19 +68,19 @@ def _equilibrium_profile(zwtmm: torch.Tensor, jwt: torch.Tensor,
         voleq1 = ps * ts / (1.0 - 1.0 / bs) / den_in * (1.0 - temp0_lo)
         vol_in = (voleq1 * (zwtmm - zlo) + ts * (zhi - zwtmm)) \
             / (zhi - zlo)
-        vol_in = torch.clamp(torch.minimum(ts, vol_in), min=0.0)
+        vol_in = bounds.maximum(torch.minimum(ts, vol_in), 0.0)
 
         # Table below the layer: closed-form layer average.
         base_hi = torch.where(mask_below,
                               (neg_psi + zwtmm - zhi) / neg_psi, 1.0)
         vol_below = ps * ts / (1.0 - 1.0 / bs) / (zhi - zlo) \
             * (base_hi ** expo - temp0_lo)
-        vol_below = torch.minimum(ts, torch.clamp(vol_below, min=0.0))
+        vol_below = torch.minimum(ts, bounds.maximum(vol_below, 0.0))
 
         vol_eq = torch.where(mask_sat, ts,
                              torch.where(mask_in, vol_in, vol_below))
-        zq_i = ps * torch.clamp(vol_eq / ts, min=0.01) ** (-bs)
-        zq.append(torch.clamp(zq_i, min=c.SMPMIN))
+        zq_i = ps * bounds.maximum(vol_eq / ts, 0.01) ** (-bs)
+        zq.append(bounds.maximum(zq_i, c.SMPMIN))
 
     zq.append(_aquifer_zq(zwtmm, jwt, theta_s[-1], psi_s[-1], bsw[-1],
                           zi, nl))
@@ -99,9 +100,9 @@ def _aquifer_zq(zwtmm: torch.Tensor, jwt: torch.Tensor,
     temp0_aq = base_aq ** (1.0 - 1.0 / bl)
     den_aq = torch.where(maskq, zwtmm - zi[nl], 1.0)
     vol_aq = psl * tsl / (1.0 - 1.0 / bl) / den_aq * (1.0 - temp0_aq)
-    vol_aq = torch.minimum(tsl, torch.clamp(vol_aq, min=0.0))
-    zq_aq = torch.clamp(psl * torch.clamp(vol_aq / tsl, min=0.01) ** (-bl),
-                        min=c.SMPMIN)
+    vol_aq = torch.minimum(tsl, bounds.maximum(vol_aq, 0.0))
+    zq_aq = bounds.maximum(
+        psl * bounds.maximum(vol_aq / tsl, 0.01) ** (-bl), c.SMPMIN)
     return torch.where(maskq, zq_aq, 0.0)
 
 
@@ -130,15 +131,15 @@ def _conductivity_and_potential(theta: List[torch.Tensor],
         inext = min(nl - 1, i + 1)
         s1 = 0.5 * (theta[i] + theta[inext]) \
             / (0.5 * (theta_s[i] + theta_s[inext]))
-        s1 = torch.clamp(s1, max=1.0)
+        s1 = bounds.minimum(s1, 1.0)
         s2 = hksat[i] * s1 ** (2.0 * bsw[i] + 2.0)
         if imp is not None:
             s2 = s2 * torch.minimum(imp[i], imp[inext])
         hk.append(s1 * s2)
         dhkdw.append((2.0 * bsw[i] + 3.0) * s2
                      * (1.0 / (theta_s[i] + theta_s[inext])))
-        s_node = torch.clamp(theta[i] / theta_s[i], 0.01, 1.0)
-        smp_i = torch.clamp(psi_s[i] * s_node ** (-bsw[i]), min=c.SMPMIN)
+        s_node = bounds.clip(theta[i] / theta_s[i], 0.01, 1.0)
+        smp_i = bounds.maximum(psi_s[i] * s_node ** (-bsw[i]), c.SMPMIN)
         smp.append(smp_i)
         dsmpdw.append(-bsw[i] * smp_i / (s_node * theta_s[i]))
     return hk, dhkdw, smp, dsmpdw
@@ -275,8 +276,8 @@ def soil_water_update(h2osoi: List[torch.Tensor],
                + num_in * dhkdw[i - 1]) / den_in
 
     # Variant B (table below the column): aquifer coupling.
-    s_node_aq = torch.clamp(0.5 * (1.0 + theta[i] / theta_s[i]), 0.01, 1.0)
-    smp_aq = torch.clamp(psi_s[i] * s_node_aq ** (-bsw[i]), min=c.SMPMIN)
+    s_node_aq = bounds.clip(0.5 * (1.0 + theta[i] / theta_s[i]), 0.01, 1.0)
+    smp_aq = bounds.maximum(psi_s[i] * s_node_aq ** (-bsw[i]), c.SMPMIN)
     dsmpdw_aq = -bsw[i] * smp_aq / (s_node_aq * theta_s[i])
     den_b = torch.where(below, zc_aq - zc_soil[i], 1.0)
     num_b = smp_aq - smp[i] - (zq[nl] - zq[i])
@@ -306,17 +307,16 @@ def soil_water_update(h2osoi: List[torch.Tensor],
     ts_j = select_layer(theta_s, jwt, fill=1.0)
     hk_j = select_layer(hksat, jwt, fill=0.0)
     b_j = select_layer(bsw, jwt, fill=1.0)
-    s1q = torch.clamp(th_j / ts_j, 0.01, 1.0)
+    s1q = bounds.clip(th_j / ts_j, 0.01, 1.0)
     ka = hk_j * s1q ** (2.0 * b_j + 3.0)
     jm = torch.clamp(jwt - 1, min=0)
     smp_jm = select_layer(smp, jm, fill=0.0)
     zq_jm = select_layer(zq[:nl], jm, fill=0.0)
-    wh = torch.clamp(smp_jm, min=c.SMPMIN) - zq_jm
+    wh = bounds.maximum(smp_jm, c.SMPMIN) - zq_jm
     zc_jm = select_layer([torch.full_like(zwtmm, zc_soil[i])
                           for i in range(nl)], jm, fill=0.0)
     den_q = torch.where(jwt == 0, zwtmm + 1.0, (zwtmm - zc_jm) * 2.0)
-    qcharge_in = torch.clamp(-ka * (0.0 - wh) / den_q,
-                             -10.0 / dt, 10.0 / dt)
+    qcharge_in = bounds.clip(-ka * (0.0 - wh) / den_q, -10.0 / dt, 10.0 / dt)
     qcharge_below = dw[nl] * dz_aq / dt
     qcharge = torch.where(in_col, qcharge_in, qcharge_below)
 

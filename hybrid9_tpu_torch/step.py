@@ -21,6 +21,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from .physics import bounds
 from .physics import constants as c
 from .physics.carbon import carbon_daily
 from .physics.day_kernel import (hydrology_day, hydrology_day_plain,
@@ -152,7 +153,7 @@ def _two_layer_snow(swe, snowpack, forcing, snow):
     this changes nothing.  Returns ``(pack, pr_eff, capped_mm)``."""
     total = snowpack.swe_surf + snowpack.swe_base + snowpack.w_liq
     scale = torch.where(total > 0.0,
-                        swe / torch.clamp(total, min=1.0e-12), 0.0)
+                        swe / bounds.maximum(total, 1.0e-12), 0.0)
     snowpack = snowpack.replace(
         swe_surf=snowpack.swe_surf * scale,
         swe_base=snowpack.swe_base * scale
@@ -247,7 +248,7 @@ def _soil_thermal(state, soil_new, params, forcing, geom, soil_ice: bool,
     raa = torch.where(lai <= 4.0,
                       0.25 * lai * 42.0 + 0.25 * (4.0 - lai) * 34.0, 42.0)
     rho_air = forcing.ps / (c.RGAS * tas)
-    h_surf = rho_air * c.CP_AIR / torch.clamp(raa, min=1.0)
+    h_surf = rho_air * c.CP_AIR / bounds.maximum(raa, 1.0)
     water = soil_new.h2osoi_liq
     if soil_ice:
         water = water + state.h2osoi_ice

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 
 from . import state as _state
+from .assimilate import EnKFConfig
+from .calibrate import CalibrationSpec
 from .physics.lateral import LateralParams
 from .physics.routing import (GridKinematicParams, GridMuskingumParams,
                               GridRouting, KinematicParams, MuskingumParams,
@@ -68,7 +70,11 @@ def from_reference(kind: str, fields: Mapping, dtype: torch.dtype, device):
     default's type); or ``GridRouting`` (``params`` a nested mapping of
     either dense params class, told apart by its ``slope`` field;
     ``flat_idx`` int64; the JAX package's ``dense_sharding`` has no
-    counterpart and is ignored).
+    counterpart and is ignored); ``EnKFConfig`` and ``CalibrationSpec``
+    (their fields, as Python scalars and a tuple of names); or ``theta``,
+    log-multipliers by field name (each array a ``dtype`` tensor on
+    ``device``), as ``calibrate``, ``ensemble`` and ``assimilate`` take
+    them.
     """
     if kind in _TENSOR_CLASSES:
         return _TENSOR_CLASSES[kind].from_numpy(fields, dtype, device)
@@ -83,4 +89,12 @@ def from_reference(kind: str, fields: Mapping, dtype: torch.dtype, device):
                                   dtype=torch.int64, device=device),
             n_land=int(fields["n_land"]), ny=int(fields["ny"]),
             nx=int(fields["nx"]))
+    if kind == "EnKFConfig":
+        return EnKFConfig(**{k: float(fields[k]) for k in EnKFConfig._fields})
+    if kind == "CalibrationSpec":
+        return CalibrationSpec(fields=tuple(fields["fields"]),
+                               per_cell=bool(fields["per_cell"]))
+    if kind == "theta":
+        return {k: torch.tensor(np.asarray(v), dtype=dtype, device=device)
+                for k, v in fields.items()}
     raise ValueError(f"from_reference: no class {kind!r} in the port")

@@ -100,13 +100,13 @@ def test_run_needs_the_card_unless_told(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["run", "--shard"], "A9"),
-    (["calibrate", "--config", "c.json"], "A8"),
-    (["ensemble", "--config", "c.json"], "A8"),
-    (["assimilate", "--config", "c.json"], "A8"),
+    (["calibrate", "--config", "c.json", "--shard"], "A9"),
+    (["ensemble", "--config", "c.json", "--shard"], "A9"),
+    (["assimilate", "--config", "c.json", "--shard"], "A9"),
 ], ids=lambda x: "-".join(x) if isinstance(x, list) else x)
 def test_commands_that_wait_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        main(argv + (["--device", "cpu"] if argv[0] == "run" else []))
+        main(argv + ["--device", "cpu"])
 
 
 def test_unknown_arguments_are_refused():

@@ -351,3 +351,55 @@ def test_site_kernel_engine_on_the_card_matches_the_oracle():
         np.testing.assert_allclose([r[key] for r in kernel.daily],
                                    [r[key] for r in oracle.daily],
                                    rtol=1e-5, atol=1e-7, err_msg=key)
+
+
+@pytest.mark.cuda
+def test_kernel_raises_under_autograd():
+    """The kernel has no backward: an input that requires a gradient
+    raises, naming ``use_kernel=False``, and nothing is launched; under
+    ``torch.no_grad()`` the same call launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the day kernel has no CPU form")
+    soil, veg, params, forcing, geom, _ = chip_smoke.check_case(
+        256, 8, torch.float32, torch.device("cuda"), "reference")
+    tracked = params.replace(hksat=params.hksat.clone().requires_grad_())
+    args = (soil, veg, tracked, forcing, geom, 1800.0, 48)
+    before = day_kernel.launches
+    with pytest.raises(RuntimeError, match="use_kernel=False"):
+        day_kernel.hydrology_day_cuda(*args)
+    assert day_kernel.launches == before
+    with torch.no_grad():
+        day_kernel.hydrology_day_cuda(*args)
+    assert day_kernel.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_folded_kernel_day_is_the_unfolded_control():
+    """Members folded into the cell axis (``j = cell*m + member``): the
+    kernel day's member 0 (theta = 0) is bitwise the unfolded day of
+    ``apply_multipliers(params, zeros)``, every output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the day kernel has no CPU form")
+    from hybrid9_tpu_torch.calibrate import apply_multipliers
+    from hybrid9_tpu_torch.ensemble import (fold, perturbed_multipliers,
+                                            unfold)
+    dev = torch.device("cuda", 0)
+    n, m = 1023, 4
+    soil, veg, params, forcing, geom, _ = chip_smoke.check_case(
+        n, 8, torch.float32, dev, "varied_off_interfaces")
+    theta = perturbed_multipliers(torch.Generator(device=dev).manual_seed(0),
+                                  m, sigma=0.3)
+
+    def folded(x):
+        return fold(x, m)
+    params_m = apply_multipliers(params.map(folded),
+                                 {f: v.repeat(n) for f, v in theta.items()})
+    got = _day_outputs(day_kernel.hydrology_day_cuda(
+        soil.map(folded), veg.map(folded), params_m, forcing.map(folded),
+        geom, 1800.0, 48, zd09_every=8))
+    control = apply_multipliers(params, {f: torch.zeros((), device=dev)
+                                         for f in theta})
+    want = _day_outputs(day_kernel.hydrology_day_cuda(
+        soil, veg, control, forcing, geom, 1800.0, 48, zd09_every=8))
+    for name, x in want.items():
+        assert torch.equal(unfold(got[name], m)[0], x), name

@@ -319,6 +319,8 @@ def test_run_imports_without_jax():
         "import hybrid9_tpu_torch.site, hybrid9_tpu_torch.spinup\n"
         "import hybrid9_tpu_torch.physics.lateral\n"
         "import hybrid9_tpu_torch.physics.reference_column\n"
+        "import hybrid9_tpu_torch.calibrate, hybrid9_tpu_torch.ensemble\n"
+        "import hybrid9_tpu_torch.assimilate\n"
         "import runpy\n"
         "sys.argv = ['hybrid9_tpu_torch', 'info']\n"
         "try:\n"

@@ -231,6 +231,9 @@ def test_port_never_imports_jax():
             "import hybrid9_tpu_torch.io.writer\n"
             "import hybrid9_tpu_torch.site, hybrid9_tpu_torch.spinup\n"
             "import hybrid9_tpu_torch.physics.lateral\n"
+            "import hybrid9_tpu_torch.calibrate\n"
+            "import hybrid9_tpu_torch.ensemble\n"
+            "import hybrid9_tpu_torch.assimilate\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'hybrid9_tpu'))\n"
             "print(bad)\n"
