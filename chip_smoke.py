@@ -110,7 +110,19 @@ non-zero:
    kernel wrapper raising under autograd, and the site ``calibrate`` of
    tests/test_calibrate.py on the card and the CPU; the kernel day at both
    folded widths with its rounds, the ensemble day and year, and a DA
-   cycle's forecast and analysis.
+   cycle's forecast and analysis;
+15. multiple processes on the one card: ``python -m hybrid9_tpu_torch
+   run --shard`` of ``Config()`` at 0.5 degrees (device-synthetic
+   forcing) launched as 1, 2 and 4 ranks of a gloo group
+   (``multi_rank_path``): each rank launches the day kernel once a day on
+   its slab and gathers the router's operands once a day; the 2- and
+   4-rank ``axy1901.nc`` bitwise the 1-rank file with no part file left;
+   1902 resumed by 2 ranks from the 2-rank run's checkpoint bitwise its
+   straight 1902; that checkpoint refused under 1 rank; each rank's
+   seconds a year, collectives a day and peak memory; then ``ensemble``,
+   ``assimilate`` and ``calibrate --per-cell`` with ``--shard`` as 2
+   ranks at 2 degrees against one process.  A rank that fails fails the
+   phase.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -118,12 +130,15 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ast
 import json
 import logging
 import os
 import re
 import shutil
+import socket
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -1443,6 +1458,262 @@ def closed_loop_path(tmp, dev, smi, argv=(), **cfg_kw):
     return out
 
 
+#: Phase 15: the ranks of ``run --shard`` on one card, and the grid of the
+#: closed-loop legs (phase 14 runs those commands at full width).
+RANKS = (1, 2, 4)
+LOOP_GRID_DEG = 2.0
+LOOP_DA_DAYS = 5
+# The fit's loss sums each rank's cells and then the ranks', in another
+# order than one process's sum: float32 sums of some 10^4 terms differ by
+# up to log2(terms) ulps, about 1e-6 relative; the per-cell multipliers
+# take only their own cell's gradient and are expected bitwise.
+LOOP_FIT_RTOL = 1e-5
+RANK_TIMEOUT_S = 600
+_REPO = os.path.dirname(os.path.abspath(__file__))
+# A rank's driver of several commands in one process, as ``python -m
+# hybrid9_tpu_torch`` runs one.
+_COMMANDS = ("import json, sys\n"
+             "from hybrid9_tpu_torch import cli\n"
+             "for argv in json.loads(sys.argv[1]):\n"
+             "    if cli.main(argv) != 0:\n"
+             "        sys.exit(argv[0] + ' failed')\n")
+_RANK_RE = re.compile(r"run done: process (\d+)/(\d+), (\d+) day-kernel "
+                      r"launches, collectives (\{.*\}) in (\d+) days, peak "
+                      r"device memory ([\d.]+) GB")
+_YEAR_RE = re.compile(r"year (\d+): (\d+) days in ([\d.]+)s \(([\d.]+) "
+                      r"cell-days/s\)")
+
+
+def launch_ranks(groups, tmp, timeout=RANK_TIMEOUT_S):
+    """Each ``(label, n, cmd)`` of ``groups`` (``cmd``: arguments of
+    ``python``) as ``n`` ranks of one gloo group on this machine
+    (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``/
+    ``MASTER_PORT``: the ranks share the one card), the groups at once.
+    Returns (``{label: each rank's log}``, wall seconds of them all); any
+    rank that fails or outlives ``timeout`` fails the phase, and every
+    rank is stopped."""
+    started = []
+    t0 = time.perf_counter()
+    try:
+        for label, n, cmd in groups:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = str(s.getsockname()[1])
+            for r in range(n):
+                env = dict(os.environ, WORLD_SIZE=str(n), RANK=str(r),
+                           LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                           MASTER_PORT=port)
+                path = os.path.join(tmp, f"{label}.rank{r}.log")
+                with open(path, "w") as f:
+                    started.append((label, r, n, path, subprocess.Popen(
+                        [sys.executable, *cmd], cwd=_REPO, env=env,
+                        stdout=f, stderr=subprocess.STDOUT)))
+        deadline = time.monotonic() + timeout
+        for *_, p in started:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    finally:
+        for *_, p in started:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    logs = {}
+    for label, r, n, path, p in started:
+        with open(path) as f:
+            text = f.read()
+        if p.returncode != 0:
+            raise RuntimeError(f"{label}: rank {r} of {n} exited with "
+                               f"{p.returncode}:\n{text[-3000:]}")
+        logs.setdefault(label, []).append(text)
+    return logs, wall
+
+
+def _rank_record(text):
+    """A rank's ``cli.RANK_LOG`` and ``run.YEAR_LOG`` records."""
+    m = _RANK_RE.findall(text)
+    if len(m) != 1:
+        raise RuntimeError(f"a rank's log has {len(m)} summary lines")
+    rank, world, launches, coll, days, peak = m[0]
+    years = [dict(year=int(y), days=int(d), seconds=float(s),
+                  cell_days_per_s=float(c))
+             for y, d, s, c in _YEAR_RE.findall(text)]
+    return dict(rank=int(rank), world=int(world), launches=int(launches),
+                collectives=ast.literal_eval(coll), days=int(days),
+                peak_gb=float(peak), years=years)
+
+
+def _same_netcdf(label, a, b):
+    """Every variable of two NetCDF-3 files bitwise (fill included)."""
+    from scipy.io import netcdf_file
+    with netcdf_file(a, "r", mmap=False) as fa, \
+            netcdf_file(b, "r", mmap=False) as fb:
+        if list(fa.variables) != list(fb.variables):
+            raise RuntimeError(f"{label}: variables differ")
+        for k in fa.variables:
+            if not np.array_equal(fa.variables[k][:], fb.variables[k][:]):
+                raise RuntimeError(f"{label}: {k} is not bitwise")
+        return len(fa.variables)
+
+
+def multi_rank_path(tmp, smi, argv=(), kernel=True, **cfg_kw):
+    """Phase 15, the multi-process layer on one card through the command
+    line: ``run --shard`` of ``Config()`` at 0.5 degrees (device-synthetic
+    forcing, 1901) as 1, 2 and 4 ranks sharing the card over gloo, each
+    rank launching the day kernel once a day on its slab; every field of
+    the 2- and 4-rank ``axy1901.nc`` bitwise the 1-rank file's, no part
+    file left; the 2-rank run goes on to 1902 with a checkpoint a year,
+    and 1902 resumed by 2 ranks from the 1901 checkpoint is bitwise it; a
+    1-rank restore of that checkpoint raises.  Then at LOOP_GRID_DEG
+    degrees ``ensemble --shard --members 8``, ``assimilate --shard
+    --members 16 --days 5`` (bitwise) and ``calibrate --per-cell --shard
+    --days 2 --steps 2`` (LOOP_FIT_RTOL) as 2 ranks against one process.
+    ``cfg_kw``, ``argv`` and ``kernel=False`` (no launch expected) are for
+    rehearsals on the CPU.  Returns the phase's summary."""
+    def config(name, **kw):
+        out = os.path.join(tmp, name)
+        cfg = Config(**{**dict(output_path=out, checkpoint_path=out + "_ck",
+                               start_year=YEARS[0], end_year=YEARS[0],
+                               forcing="device-synthetic",
+                               checkpoint_every_years=0), **cfg_kw, **kw})
+        with open(out + ".json", "w") as f:
+            f.write(cfg.to_json())
+        return out
+
+    ranks = {}
+    for n in RANKS:
+        kw = (dict(end_year=YEARS[1], checkpoint_every_years=1) if n == 2
+              else {})
+        out = config(f"ranks{n}", **kw)
+        logs, wall = launch_ranks(
+            [("run", n, ["-m", "hybrid9_tpu_torch", "run", "--config",
+                         out + ".json", "--shard", *argv])], tmp)
+        logs = logs["run"]
+        recs = [_rank_record(t) for t in logs]
+        days = recs[0]["days"]
+        for r, rec in enumerate(recs):
+            want = days if kernel else 0
+            if (rec["rank"], rec["world"]) != (r, n) or \
+                    rec["launches"] != want or \
+                    rec["collectives"] != {"routing": days}:
+                raise RuntimeError(f"run as {n} ranks: rank {r} made "
+                                   f"{rec['launches']} launches and "
+                                   f"collectives {rec['collectives']} in "
+                                   f"{days} days")
+        if any(".part" in f for f in os.listdir(out)):
+            raise RuntimeError(f"run as {n} ranks: part files left")
+        fields = _same_netcdf(f"axy{YEARS[0]}.nc of {n} ranks",
+                              os.path.join(out, f"axy{YEARS[0]}.nc"),
+                              os.path.join(tmp, "ranks1",
+                                           f"axy{YEARS[0]}.nc"))
+        ranks[n] = dict(
+            wall_s=wall, days=days,
+            launches_per_rank=[rec["launches"] for rec in recs],
+            collectives_per_day_per_rank=[
+                sum(rec["collectives"].values()) / days for rec in recs],
+            peak_gb_per_rank=[rec["peak_gb"] for rec in recs],
+            year_s_per_rank={y["year"]: [rec["years"][i]["seconds"]
+                                         for rec in recs]
+                             for i, y in enumerate(recs[0]["years"])})
+        print(f"multi-rank run, {n} rank(s) on one card: axy{YEARS[0]}.nc "
+              f"({fields} variables) bitwise the 1-rank file, no part file "
+              f"left; " + json.dumps(ranks[n]) + f" ({smi})")
+    init = read_grid_file(os.path.join(tmp, "ranks1", "init_diagnostics.nc"),
+                          ["land_mask", "theta_s"])
+    check_annual_file("axy1901.nc of 1 rank",
+                      os.path.join(tmp, "ranks1", f"axy{YEARS[0]}.nc"),
+                      init["land_mask"] == 1.0, init["theta_s"])
+
+    # 1902 resumed by 2 ranks from the 2-rank run's 1901 checkpoint.
+    straight = os.path.join(tmp, "ranks2")
+    resumed = config("resumed2", end_year=YEARS[1], checkpoint_every_years=1)
+    os.makedirs(resumed + "_ck")
+    for r in range(2):
+        shutil.copy(os.path.join(straight + "_ck",
+                                 f"year_{YEARS[0]}.rank{r}of2.pt"),
+                    resumed + "_ck")
+    logs, r_wall = launch_ranks(
+        [("resume", 2, ["-m", "hybrid9_tpu_torch", "run", "--config",
+                        resumed + ".json", "--shard", "--resume", *argv])],
+        tmp)
+    logs = logs["resume"]
+    r_recs = [_rank_record(t) for t in logs]
+    if any(rec["launches"] != (r_recs[0]["days"] if kernel else 0)
+           for rec in r_recs) or not all(
+               f"restored sharded checkpoint for year {YEARS[0]}" in t
+               for t in logs):
+        raise RuntimeError(f"2-rank resume: {r_recs}")
+    name = f"axy{YEARS[1]}.nc"
+    _same_netcdf(f"resumed {name}", os.path.join(resumed, name),
+                 os.path.join(straight, name))
+    # The same checkpoint under 1 rank: refused, naming both sizes.
+    try:
+        cli.main(["run", "--config", resumed + ".json", "--shard",
+                  "--resume", *argv])
+    except ValueError as e:
+        refused = str(e)
+        if "written by 2 rank(s); this run has 1" not in refused:
+            raise
+    else:
+        raise RuntimeError("a 2-rank checkpoint restored under 1 rank")
+    print(f"multi-rank resume: {name} of 2 ranks resumed from "
+          f"{YEARS[0]} bitwise the straight 2-rank run's, "
+          f"{r_recs[0]['launches']} launches a rank; under 1 rank: "
+          f"{refused}")
+
+    # The closed loop at LOOP_GRID_DEG degrees: 2 ranks against one
+    # process, side by side on the card (phase 14 runs these commands at
+    # full width and times them).
+    groups, outs = [], {}
+    for n in (1, 2):
+        out = config(f"loop{n}", resolution_deg=LOOP_GRID_DEG)
+        files = [os.path.join(tmp, f"loop{n}_{k}") for k in
+                 ("ensemble.nc", "enkf.npz", "fit.npz")]
+        shard = ["--shard"] if n == 2 else []
+        cmds = [["ensemble", "--config", out + ".json", "--members",
+                 str(ENSEMBLE_MEMBERS), "--out", files[0], *shard, *argv],
+                ["assimilate", "--config", out + ".json", "--members",
+                 str(DA_MEMBERS), "--days", str(LOOP_DA_DAYS), "--obs-twin",
+                 "0.5", "--out", files[1], *shard, *argv],
+                ["calibrate", "--config", out + ".json", "--per-cell",
+                 "--obs-twin", "0.4", "--fields", "hksat", "--days",
+                 str(FIT_DAYS), "--steps", str(FIT_STEPS), "--out", files[2],
+                 *shard, *argv]]
+        groups.append((f"loop{n}", n, ["-c", _COMMANDS, json.dumps(cmds)]))
+        outs[n] = files
+    loop = dict(wall_s=launch_ranks(groups, tmp)[1])
+    _same_netcdf("ensemble --shard of 2 ranks", outs[2][0], outs[1][0])
+    with np.load(outs[2][1]) as a, np.load(outs[1][1]) as b:
+        off = [k for k in b.files if not np.array_equal(a[k], b[k])]
+        if off:
+            raise RuntimeError(f"assimilate --shard of 2 ranks: {off} not "
+                               f"bitwise")
+    fit_err = 0.0
+    with np.load(outs[2][2]) as a, np.load(outs[1][2]) as b:
+        for k in b.files:
+            x, y = a[k].astype(np.float64), b[k].astype(np.float64)
+            err = float(np.max(np.abs(x - y) / np.maximum(np.abs(y),
+                                                           1e-30)))
+            fit_err = max(fit_err, err)
+            if err > LOOP_FIT_RTOL:
+                raise RuntimeError(f"calibrate --shard of 2 ranks: {k} off "
+                                   f"by {err} relative")
+        loop["fit_multipliers_bitwise"] = bool(np.array_equal(a["hksat"],
+                                                              b["hksat"]))
+    loop["fit_max_rel_err"] = fit_err
+    print(f"multi-rank closed loop at {LOOP_GRID_DEG} degrees, 2 ranks "
+          f"against one process: ensemble --members {ENSEMBLE_MEMBERS} and "
+          f"assimilate --members {DA_MEMBERS} --days {LOOP_DA_DAYS} bitwise; "
+          f"calibrate --per-cell within {fit_err:.3e} relative (limit "
+          f"{LOOP_FIT_RTOL}); " + json.dumps(loop))
+    summary = dict(ranks=ranks, resume=dict(bitwise=True, wall_s=r_wall,
+                                            launches_per_rank=[
+                                                rec["launches"]
+                                                for rec in r_recs]),
+                   restore_under_one_rank_raises=True, closed_loop=loop)
+    print(f"multi-rank ({smi}): " + json.dumps(summary))
+    return summary
+
+
 def main() -> None:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -1838,6 +2109,10 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         loop = closed_loop_path(tmp, dev, smi)
 
+    # 15. Several processes on the card: run --shard as 1, 2 and 4 ranks.
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = multi_rank_path(tmp, smi)
+
     common = dict(route="cuda",
                   source="hybrid9_tpu_torch/csrc/day_kernel.cu",
                   bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
@@ -1876,6 +2151,20 @@ def main() -> None:
                  member0_bitwise=loop["ensemble"]["member0_bitwise"],
                  folded_max_abs_err=loop["ensemble"][
                      "folded_vs_twin_max_abs_err"]),
+             multi_rank=dict(
+                 {f"ranks_{n}": dict(
+                     launches_per_rank=v["launches_per_rank"],
+                     year_s_per_rank=v["year_s_per_rank"],
+                     collectives_per_day_per_rank=v[
+                         "collectives_per_day_per_rank"],
+                     peak_gb_per_rank=v["peak_gb_per_rank"])
+                  for n, v in ranks["ranks"].items()},
+                 bitwise_across_ranks=True,
+                 resume_bitwise=ranks["resume"]["bitwise"],
+                 restore_under_one_rank_raises=ranks[
+                     "restore_under_one_rank_raises"],
+                 closed_loop_fit_max_rel_err=ranks["closed_loop"][
+                     "fit_max_rel_err"]),
              reference_path=dict(launches=ref_launches, max_abs_err=ref_err,
                                  ms=ref_kernel_ms, plain_ms=ref_plain_ms,
                                  cells=N_CELLS)),

@@ -84,7 +84,10 @@ def enkf_update_scalar_obs(aug: Dict[str, torch.Tensor],
     def update(x):
         mean, dx = _moments(x)
         if x.dim() == 3:                                 # [m, n, l]
-            cov = torch.einsum("mn,mnl->nl", dy, dx) / (m - 1)
+            # A sum over the member axis, not einsum: cuBLAS's batched
+            # product adds in an order that depends on the cell count, so
+            # a rank's slab would part from the whole axis on the card.
+            cov = torch.sum(dy[:, :, None] * dx, dim=0) / (m - 1)
             gain = cov / denom[:, None]
             mean_a = mean + (gain * innov[:, None])[None]
             dx_a = dx - (sqrt_fac[:, None] * gain)[None] * dy[:, :, None]
@@ -174,7 +177,8 @@ def assimilate(params: SoilParams, state0: ModelState,
                theta_spread: float = 0.3, seed: int = 0,
                vegetation: bool = True, use_kernel=None,
                zd09_every: int = 1,
-               cfg: EnKFConfig = EnKFConfig()) -> Dict[str, torch.Tensor]:
+               cfg: EnKFConfig = EnKFConfig(),
+               sharding=None) -> Dict[str, torch.Tensor]:
     """Sequential EnSRF over a daily-ET observation record.
 
     ``forcing_days``: ``[days, n]`` Forcing; ``obs_et``: ``[days, n]``
@@ -183,13 +187,24 @@ def assimilate(params: SoilParams, state0: ModelState,
     ``theta_spread``: the std of the prior hksat log-multipliers, drawn by
     :func:`first_draw` from a ``torch.Generator`` seeded with ``seed`` on
     the device of ``state0`` (the CPU's and the card's generators give
-    different streams).  ``use_kernel`` as in ``step.day_step``.  (The JAX
-    package's ``sharding=`` waits for ROADMAP A9.)
+    different streams).  ``use_kernel`` as in ``step.day_step``.
+
+    With ``sharding`` (one rank of a multi-process run) the inputs are cut
+    to the rank's slab (a slab given passes through) and the outputs are
+    the slab's.  The prior is drawn for every cell and cut, so a slab's
+    multipliers are bitwise those of one process; the forecast and the
+    cell-local analysis need no exchange.
 
     Returns the posterior ``theta_mean``/``theta_std`` ``[n]``, the final
     folded ensemble state and the ``[days, n]`` ensemble-mean predicted ET
     (for innovation diagnostics).
     """
+    if sharding is not None:
+        params, state0 = sharding.put(params), sharding.put(state0)
+        forcing_days = sharding.put_block(forcing_days)
+        obs_et = sharding.put_block(obs_et)
+        if obs_mask is not None:
+            obs_mask = sharding.put_block(obs_mask)
     m = n_members
     lai = state0.veg.lai
     n = lai.shape[0]
@@ -197,7 +212,11 @@ def assimilate(params: SoilParams, state0: ModelState,
     if obs_mask is None:
         obs_mask = torch.ones((ndays, n), dtype=torch.bool, device=lai.device)
     generator = torch.Generator(device=lai.device).manual_seed(seed)
-    theta_m = first_draw(generator, m, n, theta_spread, lai.dtype)
+    if sharding is None:
+        theta_m = first_draw(generator, m, n, theta_spread, lai.dtype)
+    else:
+        theta_m = sharding.put_block(first_draw(
+            generator, m, sharding.n, theta_spread, lai.dtype))
     params_tiled = params.map(lambda x: fold(x, m))
     state_m = state0.map(lambda x: fold(x, m))
     dt = c.SDAY / nisurf

@@ -117,19 +117,30 @@ def simulate_daily_et(theta: Dict[str, torch.Tensor],
 
 def et_loss(theta, params, state0, forcing_days, geom, obs_et,
             nisurf: int = c.NISURF_DEFAULT,
-            obs_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+            obs_mask: Optional[torch.Tensor] = None,
+            sharding=None) -> torch.Tensor:
     """Mean-squared error of simulated vs observed daily ET (mm/day).
 
     ``obs_et``: ``[days, n]`` observations (the analog of the LCLIM
     harness's ``evap_obs`` column, HYBRID9.f90:449); ``obs_mask``
     optionally marks valid observations (missing data -> 0 weight).
+
+    On one rank's slab (``sharding``) the loss is the rank's share: its
+    own cells' sum over the denominator of every rank's cells, so the
+    ranks' losses add up to the global loss.  The denominator is summed
+    across the ranks outside the autograd graph.
     """
     sim = simulate_daily_et(theta, params, state0, forcing_days, geom,
                             nisurf)
     err2 = (sim - obs_et) ** 2
     if obs_mask is not None:
         w = obs_mask.to(err2.dtype)
-        return torch.sum(err2 * w) / bounds.maximum(torch.sum(w), 1.0)
+        den = torch.sum(w)
+        if sharding is not None:
+            den = sharding.all_reduce_sum(den, "calibrate")
+        return torch.sum(err2 * w) / bounds.maximum(den, 1.0)
+    if sharding is not None:
+        return torch.sum(err2) / (err2.shape[0] * sharding.n)
     return torch.mean(err2)
 
 
@@ -148,35 +159,56 @@ def calibrate(params: SoilParams,
               nisurf: int = c.NISURF_DEFAULT,
               steps: int = 50,
               learning_rate: float = 0.1,
-              obs_mask: Optional[torch.Tensor] = None
-              ) -> CalibrationResult:
+              obs_mask: Optional[torch.Tensor] = None,
+              sharding=None) -> CalibrationResult:
     """Fit soil-parameter multipliers to observed daily ET with Adam.
 
     Each step takes the loss and its gradient at the current multipliers
     and then updates them; ``loss_history`` holds each step's loss before
     its update and, last, the loss at the fitted multipliers.  Everything
     stays on the device of ``params``: the loop never waits for the card.
-    (The JAX package's ``sharding=`` waits for ROADMAP A9.)
+
+    ``sharding`` (one rank of a multi-process run): the inputs are cut to
+    the rank's slab (a slab given passes through) and so is a per-cell
+    theta, whose gradient is then the rank's own; each step's loss is the
+    rank's share (:func:`et_loss`), a scalar theta's gradient is summed
+    across the ranks after the backward pass, and the loss history is
+    summed once at the end, so every rank reports the global loss.
     """
+    if sharding is not None:
+        params, state0 = sharding.put(params), sharding.put(state0)
+        forcing_days = sharding.put_block(forcing_days)
+        obs_et = sharding.put_block(obs_et)
+        if obs_mask is not None:
+            obs_mask = sharding.put_block(obs_mask)
     ref = params.hksat
     theta = {k: v.requires_grad_(True) for k, v in spec.init_theta(
         params.n_cells, ref.dtype, ref.device).items()}
     opt = torch.optim.Adam(list(theta.values()), lr=learning_rate)
     losses = []
+    scalars = [t for t in theta.values() if t.dim() == 0]
     for _ in range(steps):
         opt.zero_grad()
         loss = et_loss(theta, params, state0, forcing_days, geom, obs_et,
-                       nisurf, obs_mask)
+                       nisurf, obs_mask, sharding)
         loss.backward()
+        if sharding is not None and scalars:
+            grads = sharding.all_reduce_sum(
+                torch.stack([t.grad for t in scalars]), "calibrate")
+            for t, g in zip(scalars, grads):
+                t.grad = g
         opt.step()
         losses.append(loss.detach())
     fitted = {k: v.detach() for k, v in theta.items()}
     with torch.no_grad():
         losses.append(et_loss(fitted, params, state0, forcing_days, geom,
-                              obs_et, nisurf, obs_mask))
+                              obs_et, nisurf, obs_mask, sharding))
+    history = torch.stack(losses)
+    if sharding is not None:
+        history = sharding.all_reduce_sum(history, "calibrate")
     return CalibrationResult(theta=fitted,
                              params=apply_multipliers(params, fitted),
-                             loss_history=torch.stack(losses))
+                             loss_history=history)
 
 
 def parameter_sensitivity(params: SoilParams,

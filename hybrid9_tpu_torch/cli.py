@@ -19,8 +19,14 @@ EXECUTE/slurm_submit):
 ``run``, ``calibrate --config``, ``ensemble`` and ``assimilate`` take the
 JAX package's Config files (their TPU-only keys are dropped).  Every
 command that runs the model runs on the card unless ``--device`` names
-another (``site`` with ``--engine kernel``).  ``--shard`` waits for
-ROADMAP A9.
+another (``site`` with ``--engine kernel``).
+
+Multi-process runs launch the same command in every process with
+``--shard`` (``torchrun --nproc-per-node N -m hybrid9_tpu_torch run
+--shard ...``, or ``WORLD_SIZE``/``RANK``/``MASTER_ADDR``/``MASTER_PORT``
+set by hand): each rank owns one slab of the packed cell axis, reads
+only its own forcing, writes a part file that rank 0 stitches and saves
+its own checkpoint (parallel/).
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ import time
 
 import torch
 
+from . import calendar
+from .parallel.launch import initialize_distributed, process_index
 from .site import DEBUG_SITES
-from .step import waits
 from .utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -48,6 +55,10 @@ ENSEMBLE_LOG = ("ensemble: %d members x %d cells x %d days in %.2fs "
 #: (log-multiplier, seconds).
 TWIN_LOG = ("twin experiment: obs generated at hksat log-multiplier %.3f "
             "in %.2fs")
+#: The last log line of ``run``: (rank, ranks, day-kernel launches,
+#: collectives by caller, days, peak device memory GB).
+RANK_LOG = ("run done: process %d/%d, %d day-kernel launches, "
+            "collectives %s in %d days, peak device memory %.3f GB")
 
 def _config(args: argparse.Namespace):
     """The run's Config: ``--config`` (or the defaults), with ``--years``
@@ -72,52 +83,104 @@ def _config(args: argparse.Namespace):
     return cfg
 
 
-def _provider(cfg, grid, dtype, device):
-    """The forcing provider ``cfg.forcing`` names."""
-    from .data.forcing import (NetCDFForcingProvider, PrefetchingProvider,
+def _host_provider(cfg, grid, dtype, device, sharding=None):
+    """The host forcing provider ``cfg.forcing`` names: the PGF archive,
+    or the host synthetic generator (which ``device-synthetic`` falls
+    back to here).  Under a multi-process ``sharding`` it reads only the
+    rank's slab (the lat-row band of a PGF archive, as each MPI rank read
+    only its tile, READ_NET_CDF_3DR.f90:95-97) and delivers it on the
+    rank's device."""
+    from .data.forcing import (HostShardedProvider, NetCDFForcingProvider,
                                SyntheticForcingProvider)
+    multihost = sharding is not None and sharding.world > 1
     if cfg.forcing == "pgf" and cfg.forcing_path:
-        return PrefetchingProvider(NetCDFForcingProvider(
-            cfg.forcing_path, grid, dtype=dtype, device=device))
+        local = NetCDFForcingProvider(
+            cfg.forcing_path, grid, dtype=dtype, device=device,
+            cell_range=(sharding.lo, sharding.hi) if multihost else None)
+        if multihost:
+            log.info("pgf shard read band: rows [%d, %d) of %d (%.0f%%)",
+                     local.row_lo, local.row_hi, grid.ny,
+                     100.0 * (local.row_hi - local.row_lo) / grid.ny)
+    else:
+        local = SyntheticForcingProvider(
+            grid.n_padded, seed=0, lat=grid.cell_lat, dtype=dtype,
+            device=device,
+            cell_slice=slice(sharding.lo, sharding.hi) if multihost
+            else None)
+    if multihost:
+        return HostShardedProvider(local, sharding, grid.n_padded)
+    return local
+
+
+def _provider(cfg, grid, dtype, device, sharding=None):
+    """The forcing provider of ``run``: ``cfg.forcing`` on the run's
+    device, the rank's slab of it under ``sharding``."""
+    from .data.forcing import PrefetchingProvider
     if cfg.forcing == "device-synthetic":
         from .data.device_forcing import DeviceSyntheticForcingProvider
         return DeviceSyntheticForcingProvider(
             grid.n_padded, seed=0, lat=grid.cell_lat, dtype=dtype,
-            device=device)
-    return PrefetchingProvider(SyntheticForcingProvider(
-        grid.n_padded, seed=0, lat=grid.cell_lat, dtype=dtype,
-        device=device))
+            device=device, sharding=sharding)
+    return PrefetchingProvider(_host_provider(cfg, grid, dtype, device,
+                                              sharding))
+
+
+def _sharding(shard: bool, n: int, device):
+    """The ``CellSharding`` of this process over ``n`` cells with
+    ``--shard``, else None; a multi-process launch needs ``--shard``."""
+    from .parallel.launch import process_count
+    from .parallel.sharding import CellSharding
+    if not shard:
+        if process_count() > 1:
+            raise SystemExit("multi-host runs require --shard")
+        return None
+    sharding = CellSharding.create(n, device)
+    sharding.check_divisible(n)
+    return sharding
 
 
 def cmd_run(args: argparse.Namespace) -> int:
     from .data.soil import load_soil
     from .io.checkpoint import Checkpointer
-    from .io.writer import AnnualWriter, write_init_diagnostics
+    from .io.writer import (AnnualWriter, ShardedAnnualWriter,
+                            write_init_diagnostics)
+    from .parallel import sharding as parallel
+    from .physics import day_kernel
     from .run import Simulation, resolve_device
     from .state import initial_state
 
-    if args.shard:
-        waits("run --shard", "A9 (multi-device)")
+    initialize_distributed()
     cfg = _config(args)
     device = resolve_device(args.device)
     dtype = getattr(torch, cfg.dtype)
     grid, params = load_soil(cfg, dtype, device)
+    sharding = _sharding(args.shard, grid.n_padded, device)
+    multihost = sharding is not None and sharding.world > 1
     state = None
     if args.resume:
         lg = cfg.layer_grid()
-        template = initial_state(params, lg.dz, lg.zi, dtype, device)
+        # Each rank restores only its own slab.
+        local = params if sharding is None else sharding.put(params)
+        template = initial_state(local, lg.dz, lg.zi, dtype,
+                                 local.theta_s.device)
         t0 = time.perf_counter()
-        year, state = Checkpointer(cfg.checkpoint_path).restore(template)
+        year, state = Checkpointer(cfg.checkpoint_path,
+                                   sharding=sharding).restore(template)
         cfg = dataclasses.replace(cfg, start_year=year + 1)
         log.info(RESUME_LOG, year, time.perf_counter() - t0)
-    provider = _provider(cfg, grid, dtype, device)
+    provider = _provider(cfg, grid, dtype, device, sharding)
+    launches0 = day_kernel.launches
+    collectives0 = dict(parallel.collectives)
     try:
-        sim = Simulation(cfg, params, state=state, land_grid=grid)
-        if cfg.write_annual and not args.resume:
+        sim = Simulation(cfg, params, state=state, sharding=sharding,
+                         land_grid=grid)
+        if cfg.write_annual and not args.resume and process_index() == 0:
             # Init-time diagnostic artifacts, as the reference writes at
             # INIT (psi_s.nc INIT.f90:686-689; chunk.nc/soil_tex.nc
             # INIT.f90:823-835).
-            write_init_diagnostics(cfg.output_path, grid, params)
+            write_init_diagnostics(
+                cfg.output_path, grid, params,
+                n_shards=sharding.world if sharding is not None else 1)
         if args.spinup_carbon:
             # Equilibrate the carbon and vegetation pools under the start
             # year's repeated climate before the run (spinup.py).
@@ -125,15 +188,28 @@ def cmd_run(args: argparse.Namespace) -> int:
             rep = spinup_carbon(sim, provider, max_loops=args.spinup_carbon,
                                 tol_slow=args.spinup_tol)
             log.info("carbon spin-up: %s", rep)
-        writer = (AnnualWriter(cfg.output_path, grid) if cfg.write_annual
-                  else None)
-        checkpointer = (Checkpointer(cfg.checkpoint_path)
+        writer = None
+        if cfg.write_annual:
+            writer = (ShardedAnnualWriter(cfg.output_path, grid,
+                                          sharding.lo, sharding.hi)
+                      if multihost else AnnualWriter(cfg.output_path, grid))
+        checkpointer = (Checkpointer(cfg.checkpoint_path, sharding=sharding)
                         if cfg.checkpoint_every_years else None)
         sim.run(provider, writer=writer, checkpointer=checkpointer)
     finally:
         close = getattr(provider, "close", None)
         if close is not None:
             close()
+    days = sum(calendar.days_in_year(y)
+               for y in range(cfg.start_year, cfg.end_year + 1))
+    peak = (torch.cuda.max_memory_allocated(sim.device) / 1e9
+            if sim.device.type == "cuda" else 0.0)
+    log.info(RANK_LOG, process_index(),
+             sharding.world if sharding is not None else 1,
+             day_kernel.launches - launches0,
+             {k: v - collectives0.get(k, 0)
+              for k, v in parallel.collectives.items()
+              if v != collectives0.get(k, 0)}, days, peak)
     return 0
 
 
@@ -200,18 +276,18 @@ def cmd_info(args: argparse.Namespace) -> int:
 
 
 def _single_host_provider(cfg, grid, dtype, device):
-    """The forcing provider of the closed-loop commands (ensemble, and
-    calibrate and assimilate on the global grid): the PGF archive where the
-    Config names one, else the host synthetic generator, which
-    ``device-synthetic`` falls back to as in the JAX package.  No
-    prefetch thread: the commands read one block."""
-    from .data.forcing import NetCDFForcingProvider, SyntheticForcingProvider
-    if cfg.forcing == "pgf" and cfg.forcing_path:
-        return NetCDFForcingProvider(cfg.forcing_path, grid, dtype=dtype,
-                                     device=device)
-    return SyntheticForcingProvider(grid.n_padded, seed=0,
-                                    lat=grid.cell_lat, dtype=dtype,
-                                    device=device)
+    """The forcing provider of a closed-loop command without ``--shard``
+    (:func:`_host_provider`; no prefetch thread: the commands read one
+    block).  Without a sharding these commands refuse a multi-process
+    launch: every process would silently redo the same global problem."""
+    from .parallel.launch import process_count
+    if process_count() > 1:
+        raise SystemExit(
+            "calibrate/ensemble/assimilate are single-process drivers "
+            "without --shard (every process would redo the same global "
+            "problem); pass --shard (calibrate/assimilate) or run them "
+            "on one host")
+    return _host_provider(cfg, grid, dtype, device)
 
 
 def _stacked_forcing(cfg, grid, n_days: int, dtype, device):
@@ -221,20 +297,43 @@ def _stacked_forcing(cfg, grid, n_days: int, dtype, device):
     return provider(cfg.start_year, 1, n_days)
 
 
-def _gather_host(x: torch.Tensor):
-    """A host numpy copy of a diagnostics-sized tensor."""
-    return x.detach().cpu().numpy()
+def _sharded_stacked_forcing(cfg, grid, n_days: int, shard: bool, dtype,
+                             device):
+    """``(sharding, [days, n] Forcing)`` of a closed-loop command.
+
+    ``shard=False``: no sharding and the whole block.  ``shard=True``:
+    this process's ``CellSharding``, and under a multi-process launch only
+    the rank's slab of the block, read by the rank alone, as ``run
+    --shard`` reads it."""
+    if not shard:
+        return None, _stacked_forcing(cfg, grid, n_days, dtype, device)
+    sharding = _sharding(True, grid.n_padded, device)
+    provider = _host_provider(cfg, grid, dtype, device, sharding)
+    return sharding, provider(cfg.start_year, 1, n_days)
+
+
+def _gather_host(x: torch.Tensor, sharding=None):
+    """A C-contiguous host numpy copy of a diagnostics-sized tensor; under
+    a sharding, one whose last axis is the rank's cells is first gathered
+    from every rank (the whole axis on every rank).  Contiguous, as the
+    JAX package's are: numpy's reductions over the copy then add in one
+    order however the tensor was laid out."""
+    if sharding is not None and x.dim() > 0:
+        x = sharding.all_gather_cells(x, "output")
+    return x.detach().contiguous().cpu().numpy()
 
 
 def _global_problem(args: argparse.Namespace):
     """``(cfg, device, dtype, grid, params, state0, geom)`` of a closed-loop
-    command on the Config file ``args.config``."""
+    command on the Config file ``args.config``, joining the process group
+    of a multi-process launch first."""
     from .config import Config
     from .data.soil import load_soil
     from .physics.hydrology import Geometry
     from .run import resolve_device
     from .state import initial_state
 
+    initialize_distributed()
     with open(args.config) as f:
         cfg = Config.from_json(f.read())
     device = resolve_device(args.device)
@@ -286,17 +385,22 @@ def cmd_calibrate_global(args: argparse.Namespace) -> int:
 
     from .calibrate import CalibrationSpec, calibrate, simulate_daily_et
 
-    if args.shard:
-        waits("calibrate --shard", "A9 (multi-device)")
     cfg, device, dtype, grid, params, state0, geom = _global_problem(args)
     ndays = args.days
-    forcing = _stacked_forcing(cfg, grid, ndays, dtype, device)
+    sharding, forcing = _sharded_stacked_forcing(cfg, grid, ndays,
+                                                 args.shard, dtype, device)
     n = grid.n_padded
     fields = tuple(args.fields.split(","))
     spec = CalibrationSpec(fields=fields, per_cell=args.per_cell)
     obs, mask = _observations(args, grid, ndays, dtype, device)
+    if sharding is not None:
+        # The rank's slab of the problem; the fit passes slabs through.
+        params, state0 = sharding.put(params), sharding.put(state0)
+        if obs is not None:
+            obs = sharding.put_block(obs)
     if obs is None and args.obs_twin is not None:
-        true_theta = {f: torch.full((n,) if args.per_cell else (),
+        true_theta = {f: torch.full((params.n_cells,) if args.per_cell
+                                    else (),
                                     float(args.obs_twin), dtype=dtype,
                                     device=device)
                       for f in fields}
@@ -311,19 +415,20 @@ def cmd_calibrate_global(args: argparse.Namespace) -> int:
     res = calibrate(params, state0, forcing, geom, obs, spec=spec,
                     nisurf=cfg.nisurf, steps=args.steps,
                     learning_rate=args.lr,
-                    obs_mask=torch.tensor(mask, device=device))
+                    obs_mask=torch.tensor(mask, device=device),
+                    sharding=sharding)
     hist = _gather_host(res.loss_history)
     log.info("global calibrate: %d cells (%d land), %d days, "
              "per_cell=%s, sharded=%s, loss %.4g -> %.4g (%d steps)",
-             n, grid.n_land, ndays, args.per_cell, False, hist[0],
-             hist[-1], args.steps)
-    theta_np = {k: _gather_host(v) for k, v in res.theta.items()}
+             n, grid.n_land, ndays, args.per_cell, sharding is not None,
+             hist[0], hist[-1], args.steps)
+    theta_np = {k: _gather_host(v, sharding) for k, v in res.theta.items()}
     if args.obs_twin is not None:
         for k, v in theta_np.items():
             land = v[:grid.n_land] if v.ndim else v
             log.info("  %s: fitted log-mult mean %.4f (true %.4f)",
                      k, float(np.mean(land)), args.obs_twin)
-    if args.out:
+    if args.out and process_index() == 0:
         if args.per_cell:
             np.savez(args.out,
                      **{k: np.exp(v) for k, v in theta_np.items()},
@@ -347,15 +452,13 @@ def cmd_ensemble(args: argparse.Namespace) -> int:
     ``members x cells``."""
     import numpy as np
 
-    from . import calendar
     from .ensemble import perturbed_multipliers, run_ensemble_annual
     from .io import netcdf
 
-    if args.shard:
-        waits("ensemble --shard", "A9 (multi-device)")
     cfg, device, dtype, grid, params, state0, geom = _global_problem(args)
     ndays = args.days or calendar.days_in_year(cfg.start_year)
-    forcing = _stacked_forcing(cfg, grid, ndays, dtype, device)
+    sharding, forcing = _sharded_stacked_forcing(cfg, grid, ndays,
+                                                 args.shard, dtype, device)
     fields = tuple(args.fields.split(","))
     generator = torch.Generator(device=device).manual_seed(args.seed)
     theta = perturbed_multipliers(generator, args.members, fields=fields,
@@ -364,12 +467,14 @@ def cmd_ensemble(args: argparse.Namespace) -> int:
     out = run_ensemble_annual(theta, params, state0, forcing, geom,
                               nisurf=cfg.nisurf, vegetation=cfg.vegetation,
                               use_kernel=cfg.use_kernel,
-                              zd09_every=cfg.zd09_every)
+                              zd09_every=cfg.zd09_every, sharding=sharding)
     # The host copy closes the timed region.
-    out = {k: _gather_host(v) for k, v in out.items()}
+    out = {k: _gather_host(v, sharding) for k, v in out.items()}
     elapsed = time.perf_counter() - t0
     log.info(ENSEMBLE_LOG, args.members, grid.n_padded, ndays, elapsed,
              device)
+    if process_index() != 0:
+        return 0
 
     fields_nc = {}
     for name, stacked in out.items():
@@ -504,13 +609,18 @@ def cmd_assimilate(args: argparse.Namespace) -> int:
     from .assimilate import EnKFConfig, assimilate
     from .calibrate import simulate_daily_et
 
-    if args.shard:
-        waits("assimilate --shard", "A9 (multi-device)")
     cfg, device, dtype, grid, params, state0, geom = _global_problem(args)
     ndays = args.days
-    forcing = _stacked_forcing(cfg, grid, ndays, dtype, device)
+    sharding, forcing = _sharded_stacked_forcing(cfg, grid, ndays,
+                                                 args.shard, dtype, device)
     n = grid.n_padded
     obs, mask = _observations(args, grid, ndays, dtype, device)
+    if sharding is not None:
+        # The rank's slab of the problem: the twin observations are made
+        # on it, and the filter passes slabs through.
+        params, state0 = sharding.put(params), sharding.put(state0)
+        if obs is not None:
+            obs = sharding.put_block(obs)
     if obs is None and args.obs_twin is not None:
         true_theta = {"hksat": torch.full((), float(args.obs_twin),
                                           dtype=dtype, device=device)}
@@ -531,12 +641,13 @@ def cmd_assimilate(args: argparse.Namespace) -> int:
                      vegetation=cfg.vegetation, use_kernel=cfg.use_kernel,
                      zd09_every=cfg.zd09_every,
                      cfg=EnKFConfig(obs_err_std=args.obs_err,
-                                    rtps=args.rtps))
-    tm = _gather_host(res["theta_mean"])
+                                    rtps=args.rtps),
+                     sharding=sharding)
+    tm = _gather_host(res["theta_mean"], sharding)
     elapsed = time.perf_counter() - t0
-    ts = _gather_host(res["theta_std"])
-    y_pred = _gather_host(res["y_pred_mean"])
-    obs_h = _gather_host(obs)
+    ts = _gather_host(res["theta_std"], sharding)
+    y_pred = _gather_host(res["y_pred_mean"], sharding)
+    obs_h = _gather_host(obs, sharding)
     # Innovation statistics over OBSERVED land entries only: masked-out
     # cells and days carry meaningless obs values.
     err = np.abs(y_pred - obs_h)[:, :grid.n_land]
@@ -552,7 +663,7 @@ def cmd_assimilate(args: argparse.Namespace) -> int:
              float(np.median(ts[:grid.n_land])), early, late)
     if args.obs_twin is not None:
         log.info("  true log-multiplier: %.4f", args.obs_twin)
-    if args.out:
+    if args.out and process_index() == 0:
         np.savez(args.out, theta_mean=tm[:grid.n_land],
                  theta_std=ts[:grid.n_land],
                  hksat_multiplier=np.exp(tm[:grid.n_land]),
@@ -580,7 +691,8 @@ def main(argv=None) -> int:
                     help="INTERACTIVE mode: daily CSV for one focus cell "
                          "(a site name of DEBUG_SITES or lon,lat)")
     pr.add_argument("--shard", action="store_true",
-                    help="shard cells over processes (ROADMAP A9)")
+                    help="shard cells over the processes of a "
+                         "multi-process launch (each rank owns a slab)")
     pr.add_argument("--spinup-carbon", type=int, default=0,
                     metavar="MAX_YEARS",
                     help="equilibrate the carbon and vegetation pools under "
@@ -655,7 +767,8 @@ def main(argv=None) -> int:
                          "(spatial inversion) instead of one scalar "
                          "per field")
     pc.add_argument("--shard", action="store_true",
-                    help="(global mode) cell-sharded fit (ROADMAP A9)")
+                    help="(global mode) cell-sharded fit over the "
+                         "processes of a multi-process launch")
     pc.add_argument("--days", type=int, default=60,
                     help="(global mode) days of forcing in the fit "
                          "window")
@@ -700,7 +813,8 @@ def main(argv=None) -> int:
                     help="days to integrate (default: the full start "
                          "year)")
     pe.add_argument("--shard", action="store_true",
-                    help="cell-sharded ensemble (ROADMAP A9)")
+                    help="cell-sharded ensemble over the processes of a "
+                         "multi-process launch")
     pe.add_argument("--out", default=None,
                     help="spread-diagnostics NetCDF (default "
                          "ensemble.nc)")
@@ -733,7 +847,8 @@ def main(argv=None) -> int:
     pa.add_argument("--rtps", type=float, default=0.6,
                     help="relaxation-to-prior-spread coefficient")
     pa.add_argument("--shard", action="store_true",
-                    help="cell-sharded filter (ROADMAP A9)")
+                    help="cell-sharded filter over the processes of a "
+                         "multi-process launch")
     pa.add_argument("--seed", type=int, default=0)
     pa.add_argument("--out", default=None,
                     help="write posterior npz (theta_mean/theta_std/"

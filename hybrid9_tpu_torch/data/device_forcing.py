@@ -85,19 +85,32 @@ def generate_block(seed: int, year: int, start_doy: int, n_days: int,
 
 class DeviceSyntheticForcingProvider:
     """Provider over :func:`generate_block` on ``device`` (None: the
-    card; raises where there is none)."""
+    card; raises where there is none).
+
+    With ``sharding`` (one rank of a multi-process run) the block is the
+    rank's slab, on the rank's device.  The generator's streams depend on
+    the block's shape, so each rank draws the global ``[days, n]`` block
+    and keeps its columns: bitwise the single-process block, for a
+    transient of the global block's size on every rank (a 365-day block
+    at 69,632 cells is some 0.7 GB in float32)."""
 
     def __init__(self, n: int, seed: int = 0, lat=None,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 sharding=None):
         from ..run import resolve_device
         self.n = n
         self.seed = seed
         self.dtype = dtype
-        self.device = resolve_device(device)
+        self.sharding = sharding
+        self.device = (sharding.device if sharding is not None
+                       else resolve_device(device))
         lat = np.linspace(-55.0, 65.0, n) if lat is None else lat
         self.lat = torch.as_tensor(np.asarray(lat), dtype=dtype,
                                    device=self.device)
 
     def __call__(self, year: int, start_doy: int, n_days: int) -> Forcing:
-        return generate_block(self.seed, year, start_doy, n_days, self.n,
-                              self.lat, self.dtype)
+        block = generate_block(self.seed, year, start_doy, n_days, self.n,
+                               self.lat, self.dtype)
+        if self.sharding is None:
+            return block
+        return self.sharding.put_block(block)

@@ -92,16 +92,22 @@ def _np_dtype(dtype: torch.dtype):
 
 class SyntheticForcingProvider(_HostProvider):
     """Deterministic synthetic forcing keyed by (year, day-of-year)
-    (``data/synthetic.py``, seed ``seed + year``)."""
+    (``data/synthetic.py``, seed ``seed + year``).
+
+    ``cell_slice`` narrows the block to one rank's cells: the block is
+    made for the global axis of ``n`` cells and then cut, so a slab is
+    bitwise the same columns of the global block."""
 
     def __init__(self, n: int, seed: int = 0,
                  lat: Optional[np.ndarray] = None,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 cell_slice: Optional[slice] = None):
         self.n = n
         self.seed = seed
         self.lat = lat
         self.dtype = dtype
         self.device = _device(device)
+        self.cell_slice = cell_slice or slice(None)
 
     def host_block(self, year: int, start_doy: int, n_days: int
                    ) -> Dict[str, np.ndarray]:
@@ -109,7 +115,8 @@ class SyntheticForcingProvider(_HostProvider):
             n_days, self.n, seed=self.seed + year, start_doy=start_doy,
             lat=self.lat)
         dt = _np_dtype(self.dtype)
-        return {k: v.astype(dt) for k, v in block.items()}
+        return {k: v[:, self.cell_slice].astype(dt)
+                for k, v in block.items()}
 
 
 class NetCDFForcingProvider(_HostProvider):
@@ -179,13 +186,33 @@ class NetCDFForcingProvider(_HostProvider):
         return arrays
 
 
-class HostShardedProvider:
-    """Per-process sharded ingest: waits for ROADMAP A9."""
+class HostShardedProvider(_HostProvider):
+    """One rank's forcing: a host provider that reads only the rank's
+    slab (``SyntheticForcingProvider(cell_slice=)``,
+    ``NetCDFForcingProvider(cell_range=)``), delivered on the rank's
+    device, the multi-process analog of each MPI rank hyperslab-reading
+    its own tile (READ_NET_CDF_3DR.f90:95-97).  A rank holds its slab
+    only, so, unlike the JAX package's, nothing assembles a global block;
+    a block of another width than the slab's raises."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "HostShardedProvider is not ported yet: ROADMAP A9 "
-            "(multi-device)")
+    def __init__(self, local_provider: _HostProvider, sharding,
+                 n_global: int):
+        if n_global != sharding.n:
+            raise ValueError(f"{n_global} cells, but the sharding cuts "
+                             f"{sharding.n}")
+        self.provider = local_provider
+        self.sharding = sharding
+        self.device = sharding.device
+
+    def host_block(self, year: int, start_doy: int, n_days: int
+                   ) -> Dict[str, np.ndarray]:
+        block = self.provider.host_block(year, start_doy, n_days)
+        for k, v in block.items():
+            if v.shape[1] != self.sharding.n_local:
+                raise ValueError(
+                    f"{k}: a block of {v.shape[1]} cells for the slab "
+                    f"[{self.sharding.lo}, {self.sharding.hi})")
+        return block
 
 
 class PrefetchingProvider:

@@ -11,11 +11,13 @@ archives are absent the synthetic generator stands in (data/synthetic.py).
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..grids.grid import LandGrid, make_land_grid, synthetic_land_mask
 from ..io import native
@@ -30,6 +32,10 @@ log = get_logger(__name__)
 # Reference default when the Fmax field is missing: 3809/10000
 # (INIT.f90:652-680).
 FMAX_DEFAULT = 0.3809
+
+#: Seconds the other processes of a run wait at the barrier for process
+#: 0's raw-soil regrid (the JAX package's wait bound).
+SOIL_WAIT_S = 3600.0
 
 
 def box_average(fine: np.ndarray, factor: int) -> np.ndarray:
@@ -85,8 +91,8 @@ def load_soil(cfg, dtype: torch.dtype, device,
     its product; otherwise, or without a path, the synthetic land mask at
     ``cfg.resolution_deg`` packed to a multiple of ``cfg.cell_block`` (or
     ``land_grid`` as given) and the deterministic synthetic soils
-    (seed 0).  One process runs the raw regrid; several processes waiting
-    for one file is ROADMAP A9.
+    (seed 0).  Under a multi-process launch exactly one process (rank 0)
+    runs the raw regrid and the others wait for its published file.
     """
     soil_path = cfg.soil_path
     if cfg.soil_source == "raw":
@@ -94,11 +100,23 @@ def load_soil(cfg, dtype: torch.dtype, device,
             raise ValueError("soil_source='raw' needs soil_hwsd_path "
                              "and soil_bnu_dir")
         from .soil_raw import prepare_soil
+        from ..parallel.launch import process_count, process_index
         soil_path = soil_path or os.path.join(cfg.output_path,
                                               "soil_prep.nc")
-        prepare_soil(cfg.soil_hwsd_path, cfg.soil_bnu_dir, soil_path,
-                     n_layers=cfg.layer_grid().nsoil,
-                     fmax_path=cfg.soil_fmax_path)
+        # Multi-process: exactly one process runs the (expensive) raw
+        # regrid; the rest wait at a barrier that rank 0 passes once the
+        # product is published, so no rank reads an earlier run's file.
+        # The reference serialized this kind of shared file access with
+        # its MPI token ring (INIT.f90:167-244).
+        if process_index() == 0:
+            prepare_soil(cfg.soil_hwsd_path, cfg.soil_bnu_dir, soil_path,
+                         n_layers=cfg.layer_grid().nsoil,
+                         fmax_path=cfg.soil_fmax_path)
+        else:
+            log.info("waiting for process 0 to write %s", soil_path)
+        if process_count() > 1:
+            dist.monitored_barrier(
+                timeout=datetime.timedelta(seconds=SOIL_WAIT_S))
     if cfg.soil_source in ("netcdf", "raw") and soil_path:
         fields = nc.read_grid_file(
             soil_path,

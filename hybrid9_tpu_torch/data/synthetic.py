@@ -1,13 +1,17 @@
 """Deterministic synthetic soil parameters and climate forcing.
 
 Copied from ``hybrid9_tpu/data/synthetic.py`` (numpy only, same
-``RandomState`` seeds), so both packages are fed identical inputs.
+``RandomState`` seeds), so both packages are fed identical inputs; the
+raw soil archive of ``synthesize_raw_soil_archive`` is written with
+``h5py`` as the JAX package writes it.
 Stand-in for the HWSD/BNU soil-property ingest (reference:
 SOURCE/INIT.f90:473-726) and the PGF v2.1 forcing reader (SOURCE/
 READ_PGF.f90).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -56,6 +60,108 @@ def synthetic_soil_params(n: int, seed: int = 0,
 
     return dict(theta_s=theta_s, hksat=hksat, lambda_=lambda_, bsw=bsw,
                 psi_s=psi_s, theta_m=theta_m, fmax=fmax)
+
+
+def synthesize_raw_soil_archive(out_dir: str, resolution_deg: float = 4.0,
+                                factor: int = 12, n_layers: int = 8,
+                                seed: int = 0, with_fmax: bool = True,
+                                compress: bool = False,
+                                band_coarse_rows: int = 32) -> dict:
+    """Write a synthetic HWSD + BNU-layout raw soil archive to disk.
+
+    Produces, under ``out_dir``, the file set the reference's INIT-time
+    soil ingest expects (INIT.f90:473-680) in our naming convention:
+
+    * ``hwsd.nc`` — soil texture classes at model resolution (0 = ocean,
+      1..12 = soil, 13 = water bodies),
+    * ``<var>_l<k>.nc4`` — per-layer BNU 30-arc-sec-style fields at
+      ``factor``x the model resolution, **in archive units** (0.001
+      cm^3/cm^3, cm/day, 0.001, cm), NaN over ocean,
+    * ``fmax.nc`` (optional) — max saturated fraction with some cells
+      missing (exercising the 3809/10000 default, INIT.f90:652-680).
+
+    Fine fields are the coarse-scale pattern upsampled with +-5 %
+    multiplicative sub-grid noise, generated band-by-band so full
+    30-arc-sec global archives (43200 x 21600) synthesize in bounded
+    memory; ``compress`` gzips the HDF5 datasets.  Returns a dict of
+    paths (``hwsd``, ``bnu_dir``, ``fmax``) plus the coarse-unit truth
+    fields for validation.
+    """
+    import h5py
+
+    from ..grids.grid import cell_centres, synthetic_land_mask
+
+    os.makedirs(out_dir, exist_ok=True)
+    ny = int(round(180.0 / resolution_deg))
+    nx = int(round(360.0 / resolution_deg))
+    rng = np.random.RandomState(seed)
+    mask = synthetic_land_mask(resolution_deg, seed=seed)
+    lon, lat = cell_centres(resolution_deg)
+
+    # HWSD texture: classes 1..12 on land, ~2 % water bodies (13).
+    tex_class = np.zeros((ny, nx), np.float64)
+    tex_class[mask] = rng.randint(1, 13, size=int(mask.sum()))
+    water = mask & (rng.uniform(size=(ny, nx)) < 0.02)
+    tex_class[water] = 13.0
+    from ..io import netcdf
+    hwsd_path = os.path.join(out_dir, "hwsd.nc")
+    netcdf.write_grid_file(hwsd_path, {"soil_tex": tex_class}, lon, lat,
+                           units={"soil_tex": "HWSD class"})
+
+    # Coarse latent texture drives the per-layer property pattern
+    # (same construction as synthetic_soil_params, in ARCHIVE units).
+    tex = rng.uniform(0.05, 0.95, size=(ny, nx))
+    truth = {v: np.full((ny, nx, n_layers), np.nan) for v in
+             ("theta_s", "k_s", "lambda", "psi_s")}
+    fy, fx = ny * factor, nx * factor
+    kw = dict(compression="gzip", compression_opts=2) if compress else {}
+    for layer in range(n_layers):
+        df = layer / max(1, n_layers - 1)
+        coarse = {
+            # 0.001 cm^3/cm^3
+            "theta_s": np.clip(0.35 + 0.15 * tex - 0.03 * df, 0.25,
+                               0.55) * 1.0e3,
+            # cm/day  (mm/s * 8640)
+            "k_s": np.exp(np.log(5.0e-3) - 2.0 * tex - 1.0 * df) * 8640.0,
+            # 0.001
+            "lambda": np.maximum(0.45 - 0.33 * tex, 0.02) * 1.0e3,
+            # cm (negative; mm / 10)
+            "psi_s": -(80.0 + 500.0 * tex) / 10.0,
+        }
+        for vi, (var, cf) in enumerate(coarse.items()):
+            cf = np.where(mask, cf, np.nan)
+            truth[var][:, :, layer] = cf
+            path = os.path.join(out_dir, f"{var}_l{layer + 1}.nc4")
+            with h5py.File(path, "w") as f:
+                dset = f.create_dataset(
+                    var, shape=(fy, fx), dtype=np.float32,
+                    chunks=(min(fy, band_coarse_rows * factor), fx), **kw)
+                nrng = np.random.RandomState(seed + 101 * layer
+                                             + 17 * vi)
+                for r0 in range(0, ny, band_coarse_rows):
+                    r1 = min(ny, r0 + band_coarse_rows)
+                    band = np.repeat(np.repeat(cf[r0:r1], factor, axis=0),
+                                     factor, axis=1)
+                    noise = nrng.uniform(0.95, 1.05, size=band.shape)
+                    dset[r0 * factor:r1 * factor] = (band
+                                                     * noise).astype(
+                                                         np.float32)
+
+    fmax_path = None
+    if with_fmax:
+        fmax = np.where(mask,
+                        np.clip(0.3809 + rng.uniform(
+                            -0.15, 0.15, size=(ny, nx)), 0.05, 0.6),
+                        np.nan)
+        # ~10 % of land cells missing -> exercises the reference default.
+        missing = mask & (rng.uniform(size=(ny, nx)) < 0.1)
+        fmax[missing] = np.nan
+        fmax_path = os.path.join(out_dir, "fmax.nc")
+        netcdf.write_grid_file(fmax_path, {"fmax": fmax}, lon, lat,
+                               units={"fmax": "-"})
+
+    return dict(hwsd=hwsd_path, bnu_dir=out_dir, fmax=fmax_path,
+                truth=truth, mask=mask, soil_tex=tex_class)
 
 
 def synthetic_forcing_day(n: int, day_of_year: int, seed: int = 0,

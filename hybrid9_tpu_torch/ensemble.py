@@ -138,7 +138,8 @@ def run_ensemble_annual(theta: Dict[str, torch.Tensor],
                         nisurf: int = c.NISURF_DEFAULT,
                         vegetation: bool = True,
                         use_kernel=None,
-                        zd09_every: int = 1
+                        zd09_every: int = 1,
+                        sharding=None
                         ) -> Dict[str, torch.Tensor]:
     """Ensemble with annual totals only: memory O(members x cells).
 
@@ -147,12 +148,18 @@ def run_ensemble_annual(theta: Dict[str, torch.Tensor],
     dailies, and the members ride the folded cell axis, so on CUDA tensors
     each day is one launch of the day kernel at ``members x cells``.  The
     forcing is folded one day at a time inside the loop, so the device
-    holds one ``[days, n]`` block whatever the ensemble size.  (The JAX
-    package's ``sharding=`` waits for ROADMAP A9.)
+    holds one ``[days, n]`` block whatever the ensemble size.  With
+    ``sharding`` (one rank of a multi-process run) the inputs are cut to
+    the rank's slab (a slab given passes through) and the members fold
+    within it: every operation of the day is per cell, so nothing crosses
+    the ranks.
 
     Returns ``{"evap", "runoff", "npp"}`` as ``[members, n]`` totals
     (mm and g DM).
     """
+    if sharding is not None:
+        params, state0 = sharding.put(params), sharding.put(state0)
+        forcing_days = sharding.put_block(forcing_days)
     dt = c.SDAY / nisurf
     m = _members(theta)
     n = state0.veg.lai.shape[0]

@@ -4,7 +4,9 @@ The sources in ``csrc/`` are compiled with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, at first
 use, into ``_build/`` beside this file; the library name carries a hash
 of the sources and flags, so an edited source is rebuilt and a stale
-library is never loaded.  The library is bound with ``ctypes``.
+library is never loaded.  The library is bound with ``ctypes``.  Ranks
+that start together build it once: the first takes a file lock and runs
+``nvcc``, the others wait on the lock and load its library.
 
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -12,6 +14,7 @@ Nothing here runs at import: the CPU tests import every module.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -51,7 +54,9 @@ def _nvcc() -> str:
 def build(name: str, sources) -> Path:
     """Compile ``sources`` with ``NVCC_FLAGS`` into ``_build/``; returns
     the library's path and leaves the compiler's output in ``build_info``
-    and ``build_logs``."""
+    and ``build_logs``.  One process at a time builds a library (a lock
+    file beside it); one that finds the library built while it waited
+    loads that."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
@@ -60,6 +65,15 @@ def build(name: str, sources) -> Path:
     if lib.exists():
         return lib
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(lib.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            _compile(lib, sources)
+    return lib
+
+
+def _compile(lib: Path, sources) -> None:
+    """Run ``nvcc`` into a temporary file and rename it to ``lib``."""
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
@@ -74,7 +88,6 @@ def build(name: str, sources) -> Path:
     build_logs[str(lib)] = dict(seconds=seconds,
                                 log=proc.stdout + proc.stderr, path=str(lib))
     build_info.update(build_logs[str(lib)])
-    return lib
 
 
 def day_kernel_lib() -> ctypes.CDLL:

@@ -8,8 +8,10 @@ operands, the lateral groundwater grid, the snow parameters, the focus
 cell) and the keyword
 arguments that make ``step.day_step`` / ``block_step`` run the configured
 physics; ``run_year`` streams forcing block by block, ``run`` writes the
-annual files and checkpoints.  A persistently sharded state waits for
-ROADMAP A9.
+annual files and checkpoints.  Under a ``sharding`` (one rank of a
+multi-process run, parallel/sharding.py) the simulation holds the rank's
+slab of the cell axis, and the router and lateral groundwater run on the
+gathered axis.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from .grids.routing import (bankfull_width_m, cell_area_m2,
                             flow_length_m, load_network, reach_slope,
                             slope_from_accumulation)
 from .io.writer import FocusCSVWriter, to_host
+from .parallel.launch import local_device, process_count
+from .parallel.sharding import Gathered
 from .physics.hydrology import Geometry
 from .physics.lateral import make_lateral_params
 from .physics.routing import (GridKinematicParams, GridMuskingumParams,
@@ -36,7 +40,7 @@ from .physics.routing import (GridKinematicParams, GridMuskingumParams,
 from .physics.snow import SnowParams, TwoLayerSnowParams
 from .state import AnnualAccumulators, Forcing, ModelState, SoilParams, \
     initial_state
-from .step import annual_means, block_step, waits
+from .step import annual_means, block_step
 from .utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -51,7 +55,8 @@ OUTPUT_LOG = "year %d: output %.3fs, checkpoint %.3fs"
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; None means the card.  Raises
+    """``device`` as a ``torch.device``; None means the card (a rank of a
+    multi-process run: its own, ``parallel.launch.local_device``).  Raises
     where None is given and there is no CUDA device, so that an entry
     point never carries on on the CPU unasked."""
     if device is not None:
@@ -60,6 +65,8 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(
             "no CUDA device: the port's entry points run on the GPU "
             "unless the caller asks for device='cpu'")
+    if process_count() > 1:
+        return local_device()
     return torch.device("cuda")
 
 
@@ -69,7 +76,12 @@ class Simulation:
     ``params`` (and ``state``, when given) say where the run lives: every
     tensor made here goes to their device.  ``devices`` optionally names
     the devices whose slabs of cells the hydrology day runs on
-    (``hydrology_day_sharded``).  With ``cfg.interactive`` and a
+    (``hydrology_day_sharded``).  With ``sharding`` (a
+    ``parallel.sharding.CellSharding``) the run is one rank's: ``params``
+    and ``state`` are cut to its slab ``[host_lo, host_hi)`` (a slab given
+    passes through), the hydrology day runs on the rank's devices, and the
+    router and lateral groundwater gather their operands from every rank
+    once a day.  With ``cfg.interactive`` and a
     ``land_grid``, the land cell nearest ``(site_lon, site_lat)`` is the
     focus cell whose daily rows go to ``focus_daily.csv`` and
     ``focus_wt.csv`` (the reference's single-point debug mode,
@@ -80,12 +92,22 @@ class Simulation:
                  state: Optional[ModelState] = None, sharding=None,
                  land_grid: Optional[LandGrid] = None,
                  devices: Optional[Sequence] = None):
-        if sharding is not None:
-            waits("sharding (a persistently sharded state)",
-                  "A9 (multi-device)")
         self.cfg = cfg
         self.grid = cfg.layer_grid()
         self.dtype = getattr(torch, cfg.dtype)
+        self.sharding = sharding
+        self.n_global = (sharding.n if sharding is not None
+                         else params.n_cells)
+        # This rank's slab of the cell axis (one process owns every cell).
+        self.host_lo, self.host_hi = 0, self.n_global
+        if sharding is not None:
+            sharding.check_divisible(self.n_global)
+            params = sharding.put(params)
+            if state is not None:
+                state = sharding.put(state)
+            self.host_lo, self.host_hi = sharding.lo, sharding.hi
+            if devices is None and sharding.n_devices > 1:
+                devices = sharding.devices
         self.device = params.theta_s.device
         self.geom = Geometry.from_layer_grid(self.grid)
         self.params = params
@@ -114,11 +136,12 @@ class Simulation:
                 "routers; set routing_scheme='kinematic' or 'muskingum' "
                 f"(got {cfg.routing_scheme!r})")
         if cfg.lateral_routing and land_grid is not None:
-            self.routing = self._routing(land_grid, routing_form)
+            self.routing = self._gathered(self._routing(land_grid,
+                                                        routing_form))
         self.lateral = None
         if cfg.lateral_groundwater and land_grid is not None:
-            self.lateral = make_lateral_params(land_grid, self.device,
-                                               k_lat=cfg.lateral_k)
+            self.lateral = self._gathered(make_lateral_params(
+                land_grid, self.device, k_lat=cfg.lateral_k))
         self.snow = None
         self.snow_albedo = None
         if cfg.snow:
@@ -131,16 +154,25 @@ class Simulation:
         self.focus_idx = None
         self.focus_writer = None
         if cfg.interactive and land_grid is not None:
-            self.focus_idx = land_grid.cell_index_of(cfg.site_lon,
-                                                     cfg.site_lat)
-            self.focus_writer = FocusCSVWriter(cfg.output_path)
+            focus = land_grid.cell_index_of(cfg.site_lon, cfg.site_lat)
             log.info("interactive focus cell: packed %d at (%.2f, %.2f)",
-                     self.focus_idx, cfg.site_lon, cfg.site_lat)
+                     focus, cfg.site_lon, cfg.site_lat)
+            # The rank that owns the cell traces it and writes the CSVs.
+            if self.host_lo <= focus < self.host_hi:
+                self.focus_idx = focus - self.host_lo
+                self.focus_writer = FocusCSVWriter(cfg.output_path)
         self.n_land = land_grid.n_land if land_grid is not None else None
         self.annual_results: List[Dict[str, np.ndarray]] = []
         #: Per simulated year: wall seconds of the year, of waiting on
         #: forcing, of the annual output and of the checkpoint.
         self.timings: List[Dict[str, float]] = []
+
+    def _gathered(self, params):
+        """A cross-cell module's global ``params``, wrapped to gather its
+        operands from every rank when the run is one rank's slab."""
+        if self.sharding is None:
+            return params
+        return Gathered(params, self.sharding)
 
     def _routing(self, land_grid: LandGrid, routing_form: str):
         """The router's operands on this run's device, for
@@ -202,7 +234,8 @@ class Simulation:
             return RoutingParams(downstream=downstream, k=cfg.routing_k)
         # Padding lanes point one past the dense grid; route_grid_day
         # scatters and gathers the land lanes only.
-        flat_idx = np.full(self.n, land_grid.ny * land_grid.nx, np.int64)
+        flat_idx = np.full(self.n_global, land_grid.ny * land_grid.nx,
+                           np.int64)
         flat_idx[:land_grid.n_land] = land_grid.land_idx
         return GridRouting(params=params,
                            flat_idx=torch.tensor(flat_idx,
@@ -285,9 +318,13 @@ class Simulation:
         return means
 
     def _local_land_count(self) -> int:
-        """Number of real (non-padding) cells in the means: padding lanes
-        sit at the top of the packed axis."""
-        return self.n if self.n_land is None else int(self.n_land)
+        """Number of real (non-padding) cells in this rank's slab of the
+        means: padding lanes sit at the top of the packed axis, inside the
+        last rank's slab."""
+        if self.n_land is None:
+            return self.host_hi - self.host_lo
+        return int(np.clip(self.n_land - self.host_lo, 0,
+                           self.host_hi - self.host_lo))
 
     def _health_check(self, year: int, means: Dict[str, np.ndarray]
                       ) -> None:
@@ -301,19 +338,19 @@ class Simulation:
         res = means["max_abs_residual"][:self._local_land_count()]
         bad_nan = ~np.isfinite(res)
         if np.any(bad_nan):
-            idx = np.flatnonzero(bad_nan)[:8]
+            idx = self.host_lo + np.flatnonzero(bad_nan)[:8]
             log.error("year %d: NON-FINITE state in %d cells (packed "
                       "idx %s)", year, int(bad_nan.sum()), idx.tolist())
         worst = np.nanmax(res) if res.size else 0.0
         if worst > 1.0:
-            i = int(np.nanargmax(res))
+            i = self.host_lo + int(np.nanargmax(res))
             log.error("year %d: water-balance residual %.3g mm >> 0.1 mm "
                       "at packed cell %d", year, float(worst), i)
         elif worst > 0.1:
             # Isolated float32 exceedances of the reference's 0.1 mm abort
             # threshold occur at its "problem point" cells
             # (driver.txt:34-59; DEVIATIONS.md).
-            i = int(np.nanargmax(res))
+            i = self.host_lo + int(np.nanargmax(res))
             log.warning("year %d: water-balance residual %.3g mm > "
                         "0.1 mm at packed cell %d", year, float(worst), i)
 

@@ -19,6 +19,14 @@ A rehearsal year is the run's own ``day_step`` (``Simulation.step_kwargs``:
 the kernel, snow, routing as configured) over forcing blocks, with the
 flux sums as ``[n]`` tensors on the run's device; the host reads the
 slow pool's drift, the NEE and the pool means once per rehearsal year.
+
+On one rank's slab of a multi-process run (``sim.sharding``) the drift is
+the maximum over every rank's land cells and the means are global sums
+over the global land count, so every rank stops after the same rehearsal
+year and reports what one process reports.  Here the port departs from
+the JAX package, whose hosts each decide from their own slab
+(``hybrid9_tpu/spinup.py:221-232``) and can stop after different numbers
+of rehearsal years (ROADMAP §C).
 """
 
 from __future__ import annotations
@@ -112,6 +120,26 @@ def _ratio_update(state, sums, spin_vegetation: bool = True):
     return state.replace(carbon=carbon, veg=veg)
 
 
+def _max_abs(sim, x: np.ndarray) -> float:
+    """max |x| over the land cells of every rank (``x``: this rank's)."""
+    local = float(np.max(np.abs(x))) if x.size else 0.0
+    if sim.sharding is None:
+        return local
+    return float(sim.sharding.all_reduce_max(
+        torch.tensor(local, dtype=torch.float64), "spinup"))
+
+
+def _means(sim, rows: np.ndarray) -> list:
+    """Each row's mean over the land cells of every rank (``rows``:
+    ``[k, this rank's land cells]``)."""
+    if sim.sharding is None:
+        return [float(np.mean(r)) if r.size else 0.0 for r in rows]
+    sums = sim.sharding.all_reduce_sum(
+        torch.from_numpy(np.sum(rows, axis=1, dtype=np.float64)), "spinup")
+    n_land = sim.n_land if sim.n_land is not None else sim.n_global
+    return [float(v) / max(int(n_land), 1) for v in sums]
+
+
 def spinup_carbon(sim, forcing_provider, year: Optional[int] = None,
                   max_loops: int = 8, tol_slow: float = 1.0,
                   block_days: Optional[int] = None,
@@ -128,7 +156,8 @@ def spinup_carbon(sim, forcing_provider, year: Optional[int] = None,
     the annual NEE to converge to about 0).
 
     Returns a report: loops used, the final max |d slow| per year, the
-    final mean annual NEE (g C/m^2/yr) and the mean pools, over land.
+    final mean annual NEE (g C/m^2/yr) and the mean pools, over land (of
+    every rank, under ``sim.sharding``).
     """
     cfg = sim.cfg
     if not (cfg.carbon and cfg.vegetation):
@@ -159,8 +188,8 @@ def spinup_carbon(sim, forcing_provider, year: Optional[int] = None,
         # periodic the unaccelerated dynamics already are.  One host copy.
         d_slow, nee = torch.stack([state.carbon.c_soil_slow - slow0,
                                    sums["nee"]])[:, land].cpu().numpy()
-        drift = float(np.max(np.abs(d_slow))) if d_slow.size else 0.0
-        mean_nee = float(np.mean(nee)) if nee.size else 0.0
+        drift = _max_abs(sim, d_slow)
+        mean_nee, = _means(sim, nee[None])
         loops = loop + 1
         sim.state = _ratio_update(state, sums,
                                   spin_vegetation=spin_vegetation)
@@ -172,8 +201,9 @@ def spinup_carbon(sim, forcing_provider, year: Optional[int] = None,
     pools = sim.state.carbon
     means = torch.stack([pools.c_litter, pools.c_soil_fast,
                          pools.c_soil_slow])[:, land].cpu().numpy()
-    for k, v in zip(("mean_litter", "mean_fast", "mean_slow"), means):
-        report[k] = float(np.mean(v)) if v.size else 0.0
+    for k, v in zip(("mean_litter", "mean_fast", "mean_slow"),
+                    _means(sim, means)):
+        report[k] = v
     if drift >= tol_slow:
         log.warning("carbon spin-up did not converge in %d years "
                     "(max|d slow| %.3g > %.3g)", loops, drift, tol_slow)

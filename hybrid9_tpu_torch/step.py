@@ -12,7 +12,10 @@ cell stacks that cell's daily diagnostic row (INTERACTIVE mode).
 The switches of ``Config`` choose the snow scheme (degree-day or two
 layers), the router (dispatched on its params type), the lateral
 groundwater exchange after routing and the hydrology-only mode
-(``vegetation=False``: no growth, no carbon).
+(``vegetation=False``: no growth, no carbon).  On one rank's slab of a
+multi-process run the router and the lateral exchange come wrapped in
+``parallel.sharding.Gathered``: their operands are gathered from every
+rank and the global function runs on them.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from .parallel.sharding import Gathered
 from .physics import bounds
 from .physics import constants as c
 from .physics.carbon import carbon_daily
@@ -52,11 +56,6 @@ def snow_absorptivity(swe: torch.Tensor, alpha_snow: float = 0.70,
     ``f = swe / (swe + swe_half)``."""
     fsno = swe / (swe + swe_half)
     return 0.92 * (1.0 - fsno) + (1.0 - alpha_snow) * fsno
-
-
-def waits(what: str, item: str):
-    """Raise for ``what``, whose code waits for ROADMAP ``item``."""
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
 
 
 def day_step(state: ModelState, forcing: Forcing, params: SoilParams,
@@ -205,26 +204,47 @@ _ROUTERS = {GridRouting: route_grid_day, MuskingumParams: route_muskingum_day,
 
 def _route(river_store, diags, routing):
     """Daily routing of the day's runoff by the router of ``routing``'s
-    type; without ``routing`` the store is unchanged and discharge is 0."""
+    type; without ``routing`` the store is unchanged and discharge is 0.
+    On one rank's slab (``routing`` a ``Gathered``) the runoff and the
+    store are gathered from every rank, routed over the whole network and
+    cut back to the slab."""
     if routing is None:
         return river_store, dict(diags,
                                  discharge=torch.zeros_like(river_store))
+    sharding = None
+    if isinstance(routing, Gathered):
+        routing, sharding = routing.params, routing.sharding
     route = _ROUTERS.get(type(routing))
     if route is None:
         raise TypeError(f"no router for {type(routing).__name__}")
-    new_store, discharge = route(river_store, diags["rnf_day"], routing)
-    return new_store, dict(diags, discharge=discharge)
+    if sharding is None:
+        new_store, discharge = route(river_store, diags["rnf_day"], routing)
+        return new_store, dict(diags, discharge=discharge)
+    rnf, store = sharding.all_gather_cells(
+        torch.stack([diags["rnf_day"], river_store]), "routing")
+    new_store, discharge = route(store, rnf, routing)
+    return sharding.local(new_store), dict(
+        diags, discharge=sharding.local(discharge))
 
 
 def _lateral(soil, lateral):
     """Daily groundwater exchange between cells (physics/lateral.py),
-    applied to the aquifer store."""
+    applied to the aquifer store; on one rank's slab (a ``Gathered``)
+    over the gathered ``wa`` and ``zwt`` of every rank."""
     if lateral is None:
         return soil
+    sharding = None
+    if isinstance(lateral, Gathered):
+        lateral, sharding = lateral.params, lateral.sharding
     if not isinstance(lateral, LateralParams):
         raise TypeError(f"no lateral exchange for {type(lateral).__name__}")
-    wa_new, _ = lateral_groundwater_step(soil.wa, soil.zwt, lateral)
-    return soil.replace(wa=wa_new)
+    if sharding is None:
+        wa_new, _ = lateral_groundwater_step(soil.wa, soil.zwt, lateral)
+        return soil.replace(wa=wa_new)
+    wa, zwt = sharding.all_gather_cells(torch.stack([soil.wa, soil.zwt]),
+                                        "lateral")
+    wa_new, _ = lateral_groundwater_step(wa, zwt, lateral)
+    return soil.replace(wa=sharding.local(wa_new))
 
 
 def _soil_thermal(state, soil_new, params, forcing, geom, soil_ice: bool,

@@ -4,6 +4,8 @@
     python3 scripts/gpu_day_breakdown.py --flagship   # Config() defaults
     python3 scripts/gpu_day_breakdown.py --year       # the flagship year
     python3 scripts/gpu_day_breakdown.py --switches   # Config's switches
+    python3 scripts/gpu_day_breakdown.py --da         # a DA cycle
+    python3 scripts/gpu_day_breakdown.py --site       # the site engine
 
 Reference scope (66,560 cells, float32): times the CUDA day kernel at
 zd09_every 8 and 1 (alternating), the whole ``day_step`` with the kernel,
@@ -38,6 +40,20 @@ packed kinematic router, the packed linear reservoir), the ``day_step``
 on the winter state that 30 days from 1 January leave under that switch:
 its time by CUDA events, and profiled, its launches per day and the
 device-busy share.
+
+``--da`` (``Config()`` at 0.5 degrees, 16 members folded: 1,114,112
+cells, float32): one cycle of ``assimilate`` (the folded forecast and the
+EnSRF analysis, ``assimilate._enkf_cycle``) and the analysis alone
+(``enkf_update_scalar_obs`` on that forecast), each by CUDA events in two
+passes, from the first draw and the initial state under day 180's
+forcing.  Run from two trees in one call, it holds the analysis of one
+against the other's.
+
+``--site`` (one column, ``nisurf=48``): ``cli.main(["site", "--engine",
+"kernel"])`` on the card over the 20 summer days of ``chip_smoke.py``'s
+phase 13 (the default site's synthetic climate from day 180), three times
+in one process; ms a site day of each.  Like ``--da``, run from two trees
+in one call to hold one tree's site day against the other's.
 
 Needs a CUDA device; prints the card's name and power limit beside the
 numbers.
@@ -334,6 +350,82 @@ def switches(card: str) -> None:
     print("switches: " + json.dumps(rows))
 
 
+def da_cycle(card: str) -> None:
+    from hybrid9_tpu_torch import assimilate as da
+    from hybrid9_tpu_torch.data.soil import load_soil
+    from hybrid9_tpu_torch.ensemble import fold
+    from hybrid9_tpu_torch.physics.hydrology import Geometry
+    from hybrid9_tpu_torch.state import initial_state
+    cfg, m, dev = Config(), 16, torch.device("cuda")
+    grid, params = load_soil(cfg, torch.float32, dev)
+    n, lg = grid.n_padded, cfg.layer_grid()
+    state_m = initial_state(params, lg.dz, lg.zi, torch.float32, dev).map(
+        lambda x: fold(x, m))
+    params_t = params.map(lambda x: fold(x, m))
+    geom = Geometry.from_layer_grid(lg)
+    f_day = Forcing.from_numpy(synthetic_forcing_day(n, 180, seed=1,
+                                                     lat=grid.cell_lat),
+                               torch.float32, dev)
+    theta_m = da.first_draw(torch.Generator(device=dev).manual_seed(0), m, n,
+                            0.3, torch.float32)
+    mask = torch.arange(n, device=dev) < grid.n_land
+    obs = torch.full((n,), 1.5, device=dev)
+    enkf = da.EnKFConfig(obs_err_std=0.1, rtps=0.6)
+
+    def cycle():
+        return da._enkf_cycle(state_m, theta_m, params_t, f_day, obs, mask,
+                              geom, cfg.dt, m, cfg.nisurf, cfg.vegetation,
+                              None, cfg.zd09_every, enkf)
+
+    forecast, _, y_pred = cycle()
+    nl = forecast.soil.h2osoi_liq.shape[1]
+    aug = dict(h2osoi=forecast.soil.h2osoi_liq.reshape(n, m, nl)
+               .transpose(0, 1), wa=forecast.soil.wa.reshape(n, m).T,
+               theta=theta_m)
+
+    def analysis():
+        return da.enkf_update_scalar_obs(aug, y_pred, obs, mask,
+                                         enkf)["theta"]
+
+    row = dict(cells=n * m,
+               cycle_ms=[_event_ms(lambda: cycle()[1], 10) for _ in range(2)],
+               analysis_ms=[_event_ms(analysis, 20) for _ in range(2)])
+    print(f"DA cycle, {m} members x {n} cells ({card}): " + json.dumps(row))
+
+
+SITE_DAYS = 20
+SITE_FIRST_DOY = 180
+
+
+def site(card: str) -> None:
+    import tempfile
+
+    import numpy as np
+
+    from hybrid9_tpu_torch import cli
+    with tempfile.TemporaryDirectory() as tmp:
+        clim = os.path.join(tmp, "climate.csv")
+        keys = ("tas", "rlds", "rsds", "huss", "ps", "pr", "rhs")
+        with open(clim, "w") as f:
+            f.write(",".join(keys) + "\n")
+            for d in range(SITE_FIRST_DOY, SITE_FIRST_DOY + SITE_DAYS):
+                day = synthetic_forcing_day(
+                    1, d, seed=17, lat=np.array([Config().site_lat]))
+                f.write(",".join(repr(float(day[k][0])) for k in keys)
+                        + "\n")
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            rc = cli.main(["site", "--climate", clim, "--nisurf", "48",
+                           "--engine", "kernel", "--csv-out",
+                           os.path.join(tmp, "site.csv")])
+            ms.append((time.perf_counter() - t0) / SITE_DAYS * 1e3)
+            if rc != 0:
+                raise SystemExit(f"site: exit code {rc}")
+    print(f"site day, one column, nisurf 48 ({card}): "
+          + json.dumps(dict(days=SITE_DAYS, ms_per_site_day=ms)))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--flagship", action="store_true",
@@ -344,6 +436,11 @@ def main() -> None:
     parser.add_argument("--switches", action="store_true",
                         help="time and profile the flagship day under each "
                              "non-default switch of Config")
+    parser.add_argument("--da", action="store_true",
+                        help="time a DA cycle and its analysis at 16 "
+                             "members")
+    parser.add_argument("--site", action="store_true",
+                        help="time the site engine's day on the card")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("gpu_day_breakdown: needs a CUDA device")
@@ -352,7 +449,11 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card)
-    if args.switches:
+    if args.site:
+        site(card)
+    elif args.da:
+        da_cycle(card)
+    elif args.switches:
         switches(card)
     elif args.year:
         year(card)

@@ -6,8 +6,8 @@ the JAX package, on the CPU: two years on the 12-degree grid in float32
 both write have the same variables, dimensions, units and fill positions
 and values within the float32 tolerance of a two-year run; ``--resume``
 from the 1901 checkpoint writes an ``axy1902.nc`` byte for byte the
-straight run's.  Then ``info``, the card as the default device, and the
-commands and options that wait for a later ROADMAP item.
+straight run's.  Then ``info``, the card as the default device, and
+the refusal of unknown arguments.
 """
 
 import os
@@ -96,17 +96,6 @@ def test_run_needs_the_card_unless_told(tmp_path):
     path = _config_file(tmp_path, "c")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["run", "--config", path])
-
-
-@pytest.mark.parametrize("argv,item", [
-    (["run", "--shard"], "A9"),
-    (["calibrate", "--config", "c.json", "--shard"], "A9"),
-    (["ensemble", "--config", "c.json", "--shard"], "A9"),
-    (["assimilate", "--config", "c.json", "--shard"], "A9"),
-], ids=lambda x: "-".join(x) if isinstance(x, list) else x)
-def test_commands_that_wait_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        main(argv + ["--device", "cpu"])
 
 
 def test_unknown_arguments_are_refused():

@@ -34,6 +34,7 @@ from hybrid9_tpu_torch.config import Config
 from hybrid9_tpu_torch.data.soil import load_soil
 from hybrid9_tpu_torch.data.synthetic import (synthetic_forcing_block,
                                               synthetic_forcing_day)
+from hybrid9_tpu_torch.parallel.sharding import CellSharding
 from hybrid9_tpu_torch.run import Simulation
 from hybrid9_tpu_torch.step import annual_means, block_step, day_step
 
@@ -259,13 +260,29 @@ def test_config_flagship_defaults_match_jax():
         == (90, 45)
 
 
-# --- what still waits -------------------------------------------------------
+# --- what is refused, and one rank's slab --------------------------------
 
 def test_other_things_that_wait_raise():
     grid, params = load_soil(Config(**GRID_KW), torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    # A sharded simulation holds its rank's slab; a cell count the ranks
+    # do not divide is refused.
+    n = params.n_cells
+    rank1 = CellSharding(lo=n // 2, hi=n, n=n, devices=(torch.device("cpu"),),
+                         rank=1, world=2)
+    sim = Simulation(Config(**GRID_KW), params, land_grid=grid,
+                     sharding=rank1)
+    assert (sim.n, sim.host_lo, sim.n_global) == (n // 2, n // 2, n)
+    assert torch.equal(sim.params.hksat, params.hksat[n // 2:])
+    assert sim._local_land_count() == grid.n_land - n // 2
+    # A slab handed in passes through, and the run still spans every cell.
+    from_slab = Simulation(Config(**GRID_KW), sim.params, land_grid=grid,
+                           sharding=rank1)
+    assert (from_slab.n, from_slab.n_global) == (n // 2, n)
+    assert from_slab._local_land_count() == grid.n_land - n // 2
+    with pytest.raises(ValueError, match="not divisible by process count 3"):
         Simulation(Config(**GRID_KW), params, land_grid=grid,
-                   sharding=object())
+                   sharding=CellSharding(0, n // 3, n, (torch.device("cpu"),),
+                                         0, 3))
     with pytest.raises(ValueError, match="routing_form='grid'"):
         Simulation(Config(routing_form="grid", routing_scheme="linear",
                           **GRID_KW), params, land_grid=grid)
@@ -321,6 +338,10 @@ def test_run_imports_without_jax():
         "import hybrid9_tpu_torch.physics.reference_column\n"
         "import hybrid9_tpu_torch.calibrate, hybrid9_tpu_torch.ensemble\n"
         "import hybrid9_tpu_torch.assimilate\n"
+        "import hybrid9_tpu_torch.parallel\n"
+        "import hybrid9_tpu_torch.parallel.launch\n"
+        "import hybrid9_tpu_torch.parallel.sharding\n"
+        "import hybrid9_tpu_torch.data.synthetic\n"
         "import runpy\n"
         "sys.argv = ['hybrid9_tpu_torch', 'info']\n"
         "try:\n"

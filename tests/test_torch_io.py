@@ -25,7 +25,8 @@ from hybrid9_tpu.config import Config as JConfig
 from hybrid9_tpu.data import forcing as j_forcing
 from hybrid9_tpu.data.device_forcing import generate_block as j_generate
 from hybrid9_tpu.data.soil import load_soil as j_load_soil
-from hybrid9_tpu.data.synthetic import synthesize_raw_soil_archive
+from hybrid9_tpu.data.synthetic import \
+    synthesize_raw_soil_archive as j_synthesize_raw_soil_archive
 from hybrid9_tpu.grids import routing as j_net
 from hybrid9_tpu.grids.grid import make_land_grid as j_make_land_grid
 from hybrid9_tpu.io import native as j_native
@@ -35,6 +36,7 @@ from hybrid9_tpu_torch import calendar
 from hybrid9_tpu_torch.config import Config
 from hybrid9_tpu_torch.data import device_forcing, forcing
 from hybrid9_tpu_torch.data.soil import load_soil
+from hybrid9_tpu_torch.data.synthetic import synthesize_raw_soil_archive
 from hybrid9_tpu_torch.grids import routing as t_net
 from hybrid9_tpu_torch.grids.grid import (cell_centres, make_land_grid,
                                           synthetic_land_mask)
@@ -42,6 +44,7 @@ from hybrid9_tpu_torch.io import native, netcdf
 from hybrid9_tpu_torch.io.checkpoint import Checkpointer
 from hybrid9_tpu_torch.io.writer import (AnnualWriter, FocusCSVWriter,
                                          to_host)
+from hybrid9_tpu_torch.parallel.sharding import CellSharding
 from hybrid9_tpu_torch.state import SoilParams, initial_state
 
 from _torch_port import tree_np
@@ -246,8 +249,17 @@ def test_providers_default_to_the_card():
         forcing.SyntheticForcingProvider(8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         device_forcing.DeviceSyntheticForcingProvider(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        forcing.HostShardedProvider(None, None, 8)
+    # A rank's provider delivers its slab on its device, and only that.
+    slab = CellSharding(lo=4, hi=8, n=8, devices=(torch.device("cpu"),),
+                        rank=1, world=2)
+    whole = forcing.SyntheticForcingProvider(8, device="cpu")
+    mine = forcing.SyntheticForcingProvider(8, device="cpu",
+                                            cell_slice=slice(4, 8))
+    block = forcing.HostShardedProvider(mine, slab, 8)(1901, 1, 3)
+    assert np.array_equal(tree_np(block.tas), tree_np(whole(1901, 1, 3).tas)[
+        :, 4:8])
+    with pytest.raises(ValueError, match="a block of 8 cells"):
+        forcing.HostShardedProvider(whole, slab, 8)(1901, 1, 3)
 
 
 # --- the device generator ---------------------------------------------------
@@ -352,18 +364,45 @@ def test_load_soil_from_netcdf_matches_jax(tmp_path):
     assert np.isfinite(fmax).all() and (fmax == np.float32(0.3809)).any()
 
 
+def _raw_kw(arch):
+    return dict(resolution_deg=12.0, soil_source="raw", cell_block=32,
+                soil_hwsd_path=arch["hwsd"], soil_bnu_dir=arch["bnu_dir"],
+                soil_fmax_path=arch["fmax"])
+
+
+def test_raw_soil_archive_is_bitwise_jaxs(tmp_path):
+    h5py = pytest.importorskip("h5py")
+    kw = dict(resolution_deg=12.0, factor=6, n_layers=8, seed=3)
+    got = synthesize_raw_soil_archive(str(tmp_path / "port"), **kw)
+    want = j_synthesize_raw_soil_archive(str(tmp_path / "jax"), **kw)
+    names = sorted(os.listdir(want["bnu_dir"]))
+    assert sorted(os.listdir(got["bnu_dir"])) == names and len(names) == 34
+    for name in names:
+        a, b = (os.path.join(d, name) for d in (got["bnu_dir"],
+                                                 want["bnu_dir"]))
+        if name.endswith(".nc4"):
+            with h5py.File(a, "r") as fa, h5py.File(b, "r") as fb:
+                assert list(fa) == list(fb)
+                assert all(np.array_equal(fa[k][()], fb[k][()], equal_nan=True)
+                           for k in fa), name
+        else:
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                assert fa.read() == fb.read(), name
+    for k in ("mask", "soil_tex"):
+        assert np.array_equal(got[k], want[k])
+    assert all(np.array_equal(got["truth"][k], want["truth"][k],
+                              equal_nan=True) for k in want["truth"])
+
+
 def test_load_soil_from_raw_archive_matches_jax(tmp_path):
     pytest.importorskip("h5py")
-    arch = synthesize_raw_soil_archive(str(tmp_path / "raw"),
-                                       resolution_deg=12.0, factor=6,
-                                       n_layers=8, seed=3)
-    kw = dict(resolution_deg=12.0, soil_source="raw", cell_block=32,
-              soil_hwsd_path=arch["hwsd"], soil_bnu_dir=arch["bnu_dir"],
-              soil_fmax_path=arch["fmax"])
-    got = load_soil(Config(output_path=str(tmp_path / "port"), **kw), T64,
-                    "cpu")
-    want = j_load_soil(JConfig(output_path=str(tmp_path / "jax"), **kw),
-                       jnp.float64)
+    kw = dict(resolution_deg=12.0, factor=6, n_layers=8, seed=3)
+    got = load_soil(Config(output_path=str(tmp_path / "port"), **_raw_kw(
+        synthesize_raw_soil_archive(str(tmp_path / "raw"), **kw))), T64,
+        "cpu")
+    want = j_load_soil(JConfig(output_path=str(tmp_path / "jax"), **_raw_kw(
+        j_synthesize_raw_soil_archive(str(tmp_path / "jraw"), **kw))),
+        jnp.float64)
     _same_soil(got, want)
     assert os.path.exists(tmp_path / "port" / "soil_prep.nc")
     with pytest.raises(ValueError, match="soil_hwsd_path"):
@@ -468,8 +507,11 @@ def test_checkpoint_round_trip(tmp_path, dtype):
     np.testing.assert_array_equal(tree_np(cast.soil.zwt),
                                   tree_np(state.soil.zwt).astype(
                                       tree_np(cast.soil.zwt).dtype))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ck.restore(template, sharding=object())
+    # A checkpoint of one process is refused by a rank of two.
+    rank1 = CellSharding(lo=4, hi=8, n=8, devices=(torch.device("cpu"),),
+                         rank=1, world=2)
+    with pytest.raises(ValueError, match="written by 1 rank.*has 2"):
+        ck.restore(template, sharding=rank1)
     ck.close()
 
 

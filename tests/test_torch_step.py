@@ -234,6 +234,10 @@ def test_port_never_imports_jax():
             "import hybrid9_tpu_torch.calibrate\n"
             "import hybrid9_tpu_torch.ensemble\n"
             "import hybrid9_tpu_torch.assimilate\n"
+            "import hybrid9_tpu_torch.parallel\n"
+            "import hybrid9_tpu_torch.parallel.launch\n"
+            "import hybrid9_tpu_torch.parallel.sharding\n"
+            "import hybrid9_tpu_torch.data.synthetic\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'hybrid9_tpu'))\n"
             "print(bad)\n"
