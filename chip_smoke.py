@@ -122,7 +122,19 @@ non-zero:
    seconds a year, collectives a day and peak memory; then ``ensemble``,
    ``assimilate`` and ``calibrate --per-cell`` with ``--shard`` as 2
    ranks at 2 degrees against one process.  A rank that fails fails the
-   phase.
+   phase;
+16. the study programs, each through ``python -m
+   hybrid9_tpu_torch.scripts.<name>`` in a child process on the card, one
+   after another (``study_path``): ``flagship_soak --years 2`` (every
+   year clean), ``flagship_run --years 2`` (two annual files, the worst
+   residual under 0.1 mm), ``router_compare --iters 20 --soak-years 1``
+   (ms a day per scheme, each soak clean), ``da_soak --resolution 0.25
+   --days 2`` (16 members of the 0.25-degree grid, 4,440,064 cells, in
+   one kernel launch a day), ``zd09_drift --ks 1,8 --years 2`` at
+   reference scope (the JSON written, every number finite, the verdict
+   recorded); each leg's launches, cells and mean kernel ms; then
+   ``zd09_debug``'s isolation matrix on a reference-scope day: kernel
+   against twin at k=8 and k=1, knife-edge cells set aside as in phase 3.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -131,6 +143,7 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import ast
+import dataclasses
 import json
 import logging
 import os
@@ -1714,6 +1727,233 @@ def multi_rank_path(tmp, smi, argv=(), kernel=True, **cfg_kw):
     return summary
 
 
+#: Phase 16: the study programs, each a child process on the card, with
+#: the arguments of each leg (``python -m hybrid9_tpu_torch.scripts.<name>``)
+#: and the day-kernel launches it must make.
+STUDY_YEARS = 2
+STUDY_ITERS = 20
+STUDY_DA_DAYS = 2
+ZD09_DEBUG_DAYS = 10
+# The hydrology day's outputs among ``day_step``'s diagnostics.
+HYDROLOGY_DIAGS = ("evap_day", "evap_grnd_day", "rnf_day",
+                   "max_abs_residual")
+STUDY_TIMEOUT_S = 600
+# A leg's child: the program as ``python -m`` runs it, with the kernel
+# wrapper timed by CUDA events around each call (its launch count is the
+# wrapper's own); the last line is the leg's record.
+_STUDY_LEG = """
+import json, runpy, sys, time
+import torch
+from hybrid9_tpu_torch.physics import day_kernel
+name, argv = sys.argv[1], json.loads(sys.argv[2])
+real = day_kernel.hydrology_day_cuda
+events, cells = [], set()
+def timed(soil, *args, **kw):
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = real(soil, *args, **kw)
+    stop.record()
+    events.append((start, stop))
+    cells.add(int(soil.h2osoi_liq.shape[0]))
+    return out
+day_kernel.hydrology_day_cuda = timed
+sys.argv = [name, *argv]
+t0 = time.perf_counter()
+try:
+    runpy.run_module("hybrid9_tpu_torch.scripts." + name,
+                     run_name="__main__", alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
+seconds = time.perf_counter() - t0
+if events:
+    torch.cuda.synchronize()
+ms = [a.elapsed_time(b) for a, b in events]
+print("STUDY_LEG " + json.dumps(dict(
+    rc=rc, seconds=seconds, launches=day_kernel.launches,
+    cells=sorted(cells), kernel_ms=sum(ms) / len(ms) if ms else None)))
+"""
+
+
+def run_leg(name, argv, tmp, launches, ok_rcs=(0,)):
+    """Run the study program ``name`` with ``argv`` in a child process,
+    alone on the card; raise unless it exited with one of ``ok_rcs`` and
+    made ``launches`` kernel launches.  Returns (its record, its
+    output)."""
+    path = os.path.join(tmp, f"{name}.log")
+    with open(path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _STUDY_LEG, name,
+             json.dumps(list(argv))], cwd=_REPO, stdout=f,
+            stderr=subprocess.STDOUT)
+    try:
+        proc.wait(timeout=STUDY_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(path) as f:
+        text = f.read()
+    lines = [ln for ln in text.splitlines() if ln.startswith("STUDY_LEG ")]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"{name}: the leg's process exited with "
+                           f"{proc.returncode}:\n{text[-3000:]}")
+    rec = json.loads(lines[-1][len("STUDY_LEG "):])
+    if rec["rc"] not in ok_rcs:
+        raise RuntimeError(f"{name}: exit code {rec['rc']}:\n"
+                           f"{text[-3000:]}")
+    if rec["launches"] != launches:
+        raise RuntimeError(f"{name}: {rec['launches']} kernel launches, "
+                           f"{launches} expected:\n{text[-3000:]}")
+    return rec, text
+
+
+def _number(pattern, text, label):
+    """The float of ``pattern``'s one group in ``text``, all its
+    matches."""
+    found = [float(v) for v in re.findall(pattern, text)]
+    if not found:
+        raise RuntimeError(f"{label}: no match of {pattern!r}")
+    return found
+
+
+def zd09_matrix_leg(dev, kernel=True, **cfg_kw):
+    """``zd09_debug``'s scan for ZD09_DEBUG_DAYS reference-scope days at
+    0.5 degrees from 1901 (the kernel on the card; the launches counted),
+    then its isolation matrix on the last day's state: the kernel's day
+    against the twin's at k=8 and at k=1, every hydrology output at phase
+    3's float32 tolerances with the knife-edge cells set aside, and
+    finite.  ``kernel=False`` (the twin's rows only, no launch) and
+    ``cfg_kw`` (fields of the Config) are for rehearsals on a small grid
+    on the CPU.  Returns the leg's record."""
+    from hybrid9_tpu_torch.scripts import zd09_debug
+    cfg = dataclasses.replace(zd09_debug.debug_config(), **cfg_kw)
+    grid, params = load_soil(cfg, torch.float32, dev)
+    lg = cfg.layer_grid()
+    state = initial_state(params, lg.dz, lg.zi, torch.float32, dev)
+    geom = Geometry.from_layer_grid(lg)
+    provider = zd09_debug.SyntheticForcingProvider(
+        grid.n_padded, seed=0, lat=grid.cell_lat, device=dev)
+    day_kernel.launches = 0
+    t0 = time.perf_counter()
+    found, prev, f_day, _, days = zd09_debug.scan(
+        cfg, params, geom, state, provider, grid.n_land,
+        max_days=ZD09_DEBUG_DAYS)
+    launches = day_kernel.launches
+    rec = dict(launches=launches, cells=[grid.n_padded], days=days,
+               seconds=time.perf_counter() - t0)
+    if found is not None or launches != (days if kernel else 0):
+        raise RuntimeError(f"zd09_debug scan: {found}, {launches} "
+                           f"launches in {days} days")
+    matrix = zd09_debug.MATRIX if kernel else tuple(
+        row for row in zd09_debug.MATRIX if not row[2])
+    results = zd09_debug.isolation_matrix(prev, f_day, params, geom, cfg,
+                                          matrix)
+    for label, (st, _) in results.items():
+        if not bool(zd09_debug.finite_cells(st).all()):
+            raise RuntimeError(f"zd09_debug matrix: {label} not finite")
+
+    def hydrology(label):
+        st, diags = results[label]
+        return st.soil, {d: diags[d] for d in HYDROLOGY_DIAGS}
+
+    for k in (8, 1) if kernel else ():
+        want = hydrology(f"k={k} twin")
+        got = hydrology(f"k={k} kernel")
+        edge = knife_edge_cells(prev.soil, prev.veg, params, f_day, geom,
+                                want, cfg.dt, cfg.nisurf, zd09_every=k)
+        if int(edge.sum()) > MAX_KNIFE_EDGE_SHARE * grid.n_padded:
+            raise RuntimeError(f"zd09_debug matrix k={k}: "
+                               f"{int(edge.sum())} knife-edge cells")
+        err = check_day(f"zd09_debug matrix, kernel vs twin at k={k}",
+                        got, want, params.bsw, ~edge)[0]
+        rec[f"k{k}_max_abs_err"] = err
+        rec[f"k{k}_knife_edge_cells"] = int(edge.sum())
+    return rec
+
+
+def study_path(tmp, dev, smi):
+    """Phase 16, the study programs on the card, each through its own
+    ``python -m hybrid9_tpu_torch.scripts.<name>`` in a child process,
+    one after another so that each leg's times are its own:
+    ``flagship_soak --years 2`` (every year clean), ``flagship_run
+    --years 2`` (two annual files, the worst residual under 0.1 mm),
+    ``router_compare --iters 20 --soak-years 1`` (ms a day per scheme,
+    each soak clean), ``da_soak --resolution 0.25 --days 2`` (16 members
+    of the 0.25-degree grid folded into one launch a day) and
+    ``zd09_drift --ks 1,8 --years 2 --scope reference`` (the JSON written,
+    both arms and every drift number finite; the verdict recorded: two
+    years cannot decide it, so exit 1, "bound exceeded", is taken too);
+    then ``zd09_debug``'s isolation matrix in this process.  Each leg's
+    kernel launches, cells and mean kernel ms (CUDA events around the
+    wrapper) are recorded.  The programs' functions are rehearsed on the
+    CPU by ``tests/test_torch_scripts.py``, the matrix by
+    :func:`zd09_matrix_leg` with ``kernel=False``.  Returns the phase's
+    summary."""
+    def days(years):
+        return sum(calendar.days_in_year(1901 + i) for i in range(years))
+
+    out = os.path.join(tmp, "flagship")
+    drift_json = os.path.join(tmp, "zd09_drift_torch.json")
+    legs = {}
+    rec, text = run_leg("flagship_soak", ["--years", str(STUDY_YEARS)], tmp,
+                        days(STUDY_YEARS))
+    if "ALL CLEAN" not in text:
+        raise RuntimeError(f"flagship_soak: not clean:\n{text[-2000:]}")
+    legs["flagship_soak"] = rec
+
+    rec, text = run_leg("flagship_run", ["--years", str(STUDY_YEARS),
+                                         "--out", out], tmp,
+                        days(STUDY_YEARS))
+    files = sorted(f for f in os.listdir(out) if f.startswith("axy"))
+    worst = _number(r"worst residual ([\d.eE+-]+) mm", text,
+                    "flagship_run")[0]
+    if len(files) != STUDY_YEARS or not worst < MAX_RESIDUAL_MM:
+        raise RuntimeError(f"flagship_run: {files}, worst residual "
+                           f"{worst} mm")
+    legs["flagship_run"] = dict(rec, files=files, worst_residual_mm=worst)
+
+    schemes = ("linear", "kinematic", "muskingum")
+    rec, text = run_leg("router_compare", ["--iters", str(STUDY_ITERS),
+                                           "--soak-years", "1"], tmp,
+                        len(schemes) * (3 + STUDY_ITERS + days(1)))
+    ms = {s: _number(rf"{s}\s*: +([\d.]+) ms/day", text,
+                     "router_compare")[0] for s in schemes}
+    clean = re.findall(r"soak (\w+)\s*: .* (CLEAN|VIOLATION)", text)
+    if sorted(clean) != sorted((s, "CLEAN") for s in schemes):
+        raise RuntimeError(f"router_compare soaks: {clean}")
+    legs["router_compare"] = dict(rec, ms_per_day=ms)
+
+    rec, text = run_leg("da_soak", ["--resolution", "0.25", "--days",
+                                    str(STUDY_DA_DAYS)], tmp, STUDY_DA_DAYS)
+    folded = int(_number(r"= (\d+) folded cells", text, "da_soak")[0])
+    cycle_ms = _number(r"([\d.]+) ms a cycle", text, "da_soak")[0]
+    if rec["cells"] != [folded]:
+        raise RuntimeError(f"da_soak: kernel cells {rec['cells']}, "
+                           f"{folded} folded")
+    legs["da_soak"] = dict(rec, folded_cells=folded, cycle_ms=cycle_ms)
+
+    rec, text = run_leg("zd09_drift", ["--ks", "1,8", "--years",
+                                       str(STUDY_YEARS), "--scope",
+                                       "reference", "--out", drift_json],
+                        tmp, 2 * days(STUDY_YEARS), ok_rcs=(0, 1))
+    with open(drift_json) as f:
+        doc = json.load(f)["reference"]
+    numbers = [v for e in doc["fields"].values() for v in e.values()
+               if not isinstance(v, bool)]
+    if "NON-FINITE" in text or not np.isfinite(numbers).all():
+        raise RuntimeError(f"zd09_drift: non-finite arms or drift:\n"
+                           f"{text[-2000:]}")
+    legs["zd09_drift"] = dict(rec, all_pass=doc["all_pass"], verdict={
+        f: e["passes_bound"] for f, e in doc["fields"].items()})
+
+    legs["zd09_debug"] = zd09_matrix_leg(dev)
+    for name, rec in legs.items():
+        print(f"study {name}: " + json.dumps(rec) + f" ({smi})")
+    return legs
+
+
 def main() -> None:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -2113,6 +2353,10 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         ranks = multi_rank_path(tmp, smi)
 
+    # 16. The study programs, each in a child process.
+    with tempfile.TemporaryDirectory() as tmp:
+        study = study_path(tmp, dev, smi)
+
     common = dict(route="cuda",
                   source="hybrid9_tpu_torch/csrc/day_kernel.cu",
                   bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
@@ -2165,6 +2409,11 @@ def main() -> None:
                      "restore_under_one_rank_raises"],
                  closed_loop_fit_max_rel_err=ranks["closed_loop"][
                      "fit_max_rel_err"]),
+             scripts_path={name: dict(
+                 launches=leg["launches"], cells=leg["cells"],
+                 kernel_ms=leg.get("kernel_ms"),
+                 **{k: leg[k] for k in ("k8_max_abs_err", "k1_max_abs_err")
+                    if k in leg}) for name, leg in study.items()},
              reference_path=dict(launches=ref_launches, max_abs_err=ref_err,
                                  ms=ref_kernel_ms, plain_ms=ref_plain_ms,
                                  cells=N_CELLS)),

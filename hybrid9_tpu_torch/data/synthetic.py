@@ -83,11 +83,17 @@ def synthesize_raw_soil_archive(out_dir: str, resolution_deg: float = 4.0,
     Fine fields are the coarse-scale pattern upsampled with +-5 %
     multiplicative sub-grid noise, generated band-by-band so full
     30-arc-sec global archives (43200 x 21600) synthesize in bounded
-    memory; ``compress`` gzips the HDF5 datasets.  Returns a dict of
-    paths (``hwsd``, ``bnu_dir``, ``fmax``) plus the coarse-unit truth
-    fields for validation.
+    memory; ``compress`` gzips the HDF5 datasets.  Without ``h5py`` the
+    fine fields are NetCDF-3 files of the same names and values, their
+    latitude rows the record dimension (``io.netcdf.RecordWriter``;
+    the reader tells the containers apart by their first bytes).  Returns
+    a dict of paths (``hwsd``, ``bnu_dir``, ``fmax``) plus the
+    coarse-unit truth fields for validation.
     """
-    import h5py
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
 
     from ..grids.grid import cell_centres, synthetic_land_mask
 
@@ -132,20 +138,28 @@ def synthesize_raw_soil_archive(out_dir: str, resolution_deg: float = 4.0,
             cf = np.where(mask, cf, np.nan)
             truth[var][:, :, layer] = cf
             path = os.path.join(out_dir, f"{var}_l{layer + 1}.nc4")
-            with h5py.File(path, "w") as f:
-                dset = f.create_dataset(
-                    var, shape=(fy, fx), dtype=np.float32,
-                    chunks=(min(fy, band_coarse_rows * factor), fx), **kw)
-                nrng = np.random.RandomState(seed + 101 * layer
-                                             + 17 * vi)
+            nrng = np.random.RandomState(seed + 101 * layer + 17 * vi)
+
+            def bands(cf=cf, nrng=nrng):
                 for r0 in range(0, ny, band_coarse_rows):
                     r1 = min(ny, r0 + band_coarse_rows)
                     band = np.repeat(np.repeat(cf[r0:r1], factor, axis=0),
                                      factor, axis=1)
                     noise = nrng.uniform(0.95, 1.05, size=band.shape)
-                    dset[r0 * factor:r1 * factor] = (band
-                                                     * noise).astype(
-                                                         np.float32)
+                    yield r0, (band * noise).astype(np.float32)
+
+            if h5py is None:
+                with netcdf.RecordWriter(path, var, ("lat", "lon"),
+                                         (fx,)) as w:
+                    for _, band in bands():
+                        w.append(band)
+                continue
+            with h5py.File(path, "w") as f:
+                dset = f.create_dataset(
+                    var, shape=(fy, fx), dtype=np.float32,
+                    chunks=(min(fy, band_coarse_rows * factor), fx), **kw)
+                for r0, band in bands():
+                    dset[r0 * factor:r0 * factor + band.shape[0]] = band
 
     fmax_path = None
     if with_fmax:

@@ -39,19 +39,24 @@ def read_variable(path: str, name: str,
     """Read (a hyperslab of) a variable from NetCDF-3 or NetCDF-4.
 
     The hyperslab argument is the analog of the reference's per-rank
-    start/count reads (READ_NET_CDF_2DI.f90:32-34).
+    start/count reads (READ_NET_CDF_2DI.f90:32-34).  The container is
+    told by the file's first bytes.  A NetCDF-3 file is mapped, not read:
+    a hyperslab costs its own bytes, whatever the variable's size.
     """
     sl = hyperslab if hyperslab is not None else ()
-    if path.endswith((".nc4", ".h5", ".hdf5")) or _is_hdf5(path):
+    if _is_hdf5(path):
         if not HAVE_H5PY:
             raise RuntimeError("h5py unavailable for NetCDF-4 file")
         with h5py.File(path, "r") as f:
             return np.asarray(f[name][sl])
     if not HAVE_SCIPY_NETCDF:
         raise RuntimeError("scipy unavailable for NetCDF-3 file")
-    with _scipy_netcdf(path, "r", mmap=False) as f:
+    with _scipy_netcdf(path, "r", mmap=True) as f:
         var = f.variables[name]
-        return np.asarray(var[sl] if sl else var[:])
+        # A copy, so that no array refers to the mapping once it closes.
+        out = np.array(var[sl] if sl else var[:])
+        del var
+    return out
 
 
 def _is_hdf5(path: str) -> bool:
@@ -68,8 +73,66 @@ def variable_shape(path: str, name: str) -> Tuple[int, ...]:
     if _is_hdf5(path):
         with h5py.File(path, "r") as f:
             return tuple(f[name].shape)
-    with _scipy_netcdf(path, "r", mmap=False) as f:
-        return tuple(f.variables[name].shape)
+    with _scipy_netcdf(path, "r", mmap=True) as f:
+        var = f.variables[name]
+        shape = tuple(var.shape)
+        del var
+    return shape
+
+
+class RecordWriter:
+    """Stream one float32 variable ``name`` of shape ``[records,
+    *tail_shape]`` into a NetCDF-3 file (64-bit offsets), its first
+    dimension ``dims[0]`` the unlimited record dimension.
+
+    Each ``append`` writes a ``[k, *tail_shape]`` block after the last, so
+    a file of any size is written in the memory of one block
+    (``scipy.io.netcdf_file`` holds a whole variable until it closes);
+    ``close`` sets the header's record count.  A context manager.
+    """
+
+    def __init__(self, path: str, name: str, dims: Sequence[str],
+                 tail_shape: Sequence[int]):
+        if not HAVE_SCIPY_NETCDF:
+            raise RuntimeError("scipy unavailable: cannot write NetCDF")
+        self.name = name
+        self.tail_shape = tuple(tail_shape)
+        self.records = 0
+        # scipy writes the header, with one record of zeros so that it
+        # holds the record's size; the records are then written over it.
+        with _scipy_netcdf(path, "w", version=2) as f:
+            f.createDimension(dims[0], None)
+            for dim, size in zip(dims[1:], tail_shape):
+                f.createDimension(dim, size)
+            var = f.createVariable(name, "f", tuple(dims))
+            var[0:1] = np.zeros((1, *tail_shape), np.float32)
+            del var
+        self._fp = open(path, "r+b")
+        self._fp.seek(-4 * int(np.prod(tail_shape)), 2)
+
+    def append(self, block: np.ndarray) -> None:
+        block = np.asarray(block, ">f4")
+        if tuple(block.shape[1:]) != self.tail_shape:
+            raise ValueError(f"{self.name}: block of shape {block.shape}, "
+                             f"records of shape {self.tail_shape}")
+        self._fp.write(block.tobytes())
+        self.records += block.shape[0]
+
+    def close(self) -> None:
+        import struct
+        if self._fp.closed:
+            return
+        self._fp.truncate()
+        # The header's record count (numrecs) follows the 4-byte magic.
+        self._fp.seek(4)
+        self._fp.write(struct.pack(">i", self.records))
+        self._fp.close()
+
+    def __enter__(self) -> "RecordWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 def write_grid_file(path: str, fields: Dict[str, np.ndarray],

@@ -313,9 +313,11 @@ def test_entry_points_without_a_device_need_the_card(build):
 
 
 def test_run_imports_without_jax():
-    """Every module of the port and the entry points load, the flagship
-    case is built and stepped and the command line answers, in a process
-    where importing JAX or the JAX package fails."""
+    """Every module of the port (the study programs of
+    ``hybrid9_tpu_torch.scripts`` and ``utils.profiling`` among them) and
+    the entry points load, with no JAX module imported, the flagship case
+    is built and stepped and the command line answers, in a process where
+    importing JAX or the JAX package fails."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -342,6 +344,14 @@ def test_run_imports_without_jax():
         "import hybrid9_tpu_torch.parallel.launch\n"
         "import hybrid9_tpu_torch.parallel.sharding\n"
         "import hybrid9_tpu_torch.data.synthetic\n"
+        "import hybrid9_tpu_torch.utils.profiling\n"
+        "import importlib, pkgutil, hybrid9_tpu_torch.scripts as scripts\n"
+        "names = [m.name for m in pkgutil.iter_modules(scripts.__path__)]\n"
+        "assert len(names) == 11, names\n"
+        "for name in names:\n"
+        "    importlib.import_module('hybrid9_tpu_torch.scripts.' + name)\n"
+        "assert not any(m.split('.')[0] in ('jax', 'jaxlib', "
+        "'hybrid9_tpu') for m in sys.modules)\n"
         "import runpy\n"
         "sys.argv = ['hybrid9_tpu_torch', 'info']\n"
         "try:\n"
