@@ -52,7 +52,8 @@ non-zero:
    against its plain version (``use_kernel=False``) at the kernel's
    tolerances with the knife-edge cells set aside; then 5
    flagship days through ``block_step(devices=[cuda:0] * 4)``: four
-   launches per day, bitwise the unsharded block;
+   launches per day, bitwise the unsharded block (the resident path of
+   phase 17);
 8. timing at 69,632 cells: the flagship ``day_step``, the kernel day with
    and without the impedance operand (on the winter state and on the
    first day's state) and with a focus cell, the sharded day with 1 and
@@ -134,7 +135,18 @@ non-zero:
    reference scope (the JSON written, every number finite, the verdict
    recorded); each leg's launches, cells and mean kernel ms; then
    ``zd09_debug``'s isolation matrix on a reference-scope day: kernel
-   against twin at k=8 and k=1, knife-edge cells set aside as in phase 3.
+   against twin at k=8 and k=1, knife-edge cells set aside as in phase 3;
+17. device slabs of one process on the card (``slab_path``): 5 flagship
+   days through ``block_step(devices=[cuda:0] * k)`` at k = 4 and 3
+   (uneven), the cells resident on their slabs and the router split into
+   row bands with halo rows: bitwise (``torch.equal``) the unsharded
+   block, k launches a day, the census of halo rows and reshards; the
+   routed water balance of a resident day; 30 days of
+   ``Simulation(devices=[cuda:0] * 4)``'s run loop, its annual file byte
+   for byte one slab's; the flagship day at 1, 2 and 4 slabs and
+   unsharded (``scripts.slab_timing``: ms, launches, host syncs a day,
+   none added by the slabs); ``scripts.halo_rehearsal`` at 0.5 degrees in
+   8 bands, exit 0, its two routed days.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -1954,6 +1966,179 @@ def study_path(tmp, dev, smi):
     return legs
 
 
+SLAB_DAYS = 5
+SLAB_COUNTS = (4, 3)          # even and uneven cuts of 69,632 cells
+SLAB_TIMED = (1, 2, 4)
+SLAB_RUN_DAYS = 30
+REHEARSAL_BANDS = 8
+REHEARSAL_ITERS = 5
+# The rehearsal's day-kernel launches: a census day of each routing form
+# and of none, then a warm day and REHEARSAL_ITERS timed days of each
+# form, REHEARSAL_BANDS slabs each.
+REHEARSAL_LAUNCHES = REHEARSAL_BANDS * (3 + 2 * (1 + REHEARSAL_ITERS))
+
+
+def _leaves_equal(label, got, want):
+    for i, (x, y) in enumerate(zip(got, want)):
+        if x.device != y.device or not torch.equal(x, y):
+            raise RuntimeError(f"{label}: leaf {i} is not bitwise the "
+                               f"unsharded path's")
+
+
+def slab_path(tmp, flag, fblock, winter, dev, smi, kernel=True):
+    """Phase 17, device slabs of one process (``DeviceSlabs``), as
+    ``[cuda:0] * k``: SLAB_DAYS flagship days from 1 January through
+    ``block_step(devices=[dev] * k)`` for k in SLAB_COUNTS, bitwise the
+    unsharded block (every state field and sum), k day-kernel launches a
+    day and the census of the exchanges (the router's ``2 (k - 1)`` halo
+    rows a substep and two reshards a day, the two gathers that end the
+    block, nothing else); the routed water balance of one resident day
+    from the winter state; SLAB_RUN_DAYS days of
+    ``Simulation(devices=[dev] * 4)``'s run loop (on-card forcing made
+    slab by slab), its annual file byte for byte one slab's; the
+    flagship day at k in SLAB_TIMED through ``scripts.slab_timing`` (ms,
+    launches, host synchronisations a day against the unsharded day's;
+    the forms in turns);
+    and ``scripts.halo_rehearsal`` at 0.5 degrees in REHEARSAL_BANDS
+    bands in a child process, exit 0.  ``kernel=False`` (no launch
+    expected, nothing timed) is for rehearsals on the CPU.  Returns the
+    phase's summary."""
+    from hybrid9_tpu_torch.io.writer import AnnualWriter
+    from hybrid9_tpu_torch.parallel import sharding as parallel
+    from hybrid9_tpu_torch.scripts import slab_timing
+    from hybrid9_tpu_torch.step import slab_day_step
+
+    sim = flag.sim
+    cfg = sim.cfg
+    n = sim.n
+    frun = dict(params=sim.params, geom=sim.geom, dt=cfg.dt,
+                nisurf=cfg.nisurf)
+    block = fblock.map(lambda x: x[:SLAB_DAYS])
+    acc0 = AnnualAccumulators.zeros(n, sim.dtype, dev)
+    want = block_step(sim.state, acc0, block, **frun, **flag.step_kwargs)
+    want = _state_leaves(want[0]) + _state_leaves(want[1])
+    out = dict(blocks={})
+    for k in SLAB_COUNTS:
+        parallel.collectives.clear()
+        day_kernel.launches = 0
+        got = block_step(sim.state, acc0, block, **frun,
+                         **dict(flag.step_kwargs, devices=[dev] * k))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = day_kernel.launches
+        census = dict(parallel.collectives)
+        if launches != (SLAB_DAYS * k if kernel else 0):
+            raise RuntimeError(f"{k} slabs: {launches} kernel launches in "
+                               f"{SLAB_DAYS} days")
+        expected = {"halo": 2 * (k - 1) * cfg.routing_substeps * SLAB_DAYS,
+                    "reshard": 2 * SLAB_DAYS, "state": 2}
+        if census != expected:
+            raise RuntimeError(f"{k} slabs: exchanges {census}, expected "
+                               f"{expected}")
+        _leaves_equal(f"{k} slabs", _state_leaves(got[0])
+                      + _state_leaves(got[1]), want)
+        out["blocks"][k] = dict(launches=launches, census=census)
+        print(f"slab path: {SLAB_DAYS} flagship days on {k} slabs of "
+              f"{dev} ({n} cells): bitwise the unsharded block, "
+              f"{launches} kernel launches, exchanges {json.dumps(census)}")
+
+    # The routed water balance of one resident day from the winter state.
+    slabs = parallel.DeviceSlabs.create(n, [dev] * SLAB_COUNTS[0])
+    f31 = Forcing.from_numpy(
+        synthetic_forcing_block(SLAB_DAYS, n, seed=1,
+                                start_doy=1 + FLAGSHIP_DAYS,
+                                lat=flag.land_grid.cell_lat),
+        sim.dtype, dev)
+    states, diags = slab_day_step(
+        slabs, slabs.put(winter), slabs.put(f31.map(lambda x: x[0])),
+        slabs.put(sim.params), sim.geom, cfg.dt, cfg.nisurf,
+        **flag.step_kwargs)
+    land = slice(0, flag.land_grid.n_land)
+
+    def joined(parts):
+        return torch.cat(parts)[land].double().sum()
+
+    water = [joined([s.river_store for s in states]),
+             winter.river_store[land].double().sum(),
+             joined([d["discharge"] for d in diags]),
+             joined([d["rnf_day"] for d in diags])]
+    balance = float(water[0] - water[1] + water[2] - water[3])
+    scale = float(water[1] + torch.cat([d["rnf_day"] for d in diags])[
+        land].double().abs().sum())
+    if not abs(balance) <= 1e-5 * scale:
+        raise RuntimeError(f"slab path: routed water balance off by "
+                           f"{balance} mm of {scale} mm")
+    out["routed_balance_mm"] = balance
+    print(f"slab path: routed water balance of a resident day on "
+          f"{slabs.k} slabs {balance:.3e} mm of {scale:.3e} mm")
+
+    # The run loop of Simulation on 4 slabs and on one: the annual file.
+    provider = DeviceSyntheticForcingProvider(
+        n, seed=0, lat=flag.land_grid.cell_lat, dtype=sim.dtype, device=dev)
+    files, run = {}, {}
+    for k in (SLAB_COUNTS[0], 1):
+        sim_k = Simulation(cfg, sim.params, land_grid=flag.land_grid,
+                           devices=[dev] * k)
+        day_kernel.launches = 0
+        t0 = time.perf_counter()
+        acc = sim_k.accumulators()
+        acc, _ = sim_k.advance(sim_k.forcing_block(provider, YEARS[0], 1,
+                                                   SLAB_RUN_DAYS), acc)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = day_kernel.launches
+        if launches != (SLAB_RUN_DAYS * k if kernel else 0):
+            raise RuntimeError(f"Simulation on {k} slabs: {launches} "
+                               f"launches in {SLAB_RUN_DAYS} days")
+        means = sim_k.host_means(acc)
+        files[k] = AnnualWriter(os.path.join(tmp, f"slabs{k}"),
+                                flag.land_grid).write_annual(YEARS[0], means)
+        run[k] = dict(seconds=seconds, launches=launches,
+                      max_residual_mm=float(means["max_abs_residual"][
+                          land].max()))
+    with open(files[SLAB_COUNTS[0]], "rb") as a, open(files[1], "rb") as b:
+        if a.read() != b.read():
+            raise RuntimeError("Simulation on 4 slabs: the annual file is "
+                               "not byte for byte one slab's")
+    out["run_loop"] = run
+    print(f"slab path: {SLAB_RUN_DAYS} days of Simulation(devices=[{dev}] "
+          f"* {SLAB_COUNTS[0]}) through its run loop, annual file byte for "
+          f"byte one slab's: " + json.dumps(run) + f" ({smi})")
+    if not kernel:
+        return out
+
+    # The flagship day on the resident path at k slabs, and unsharded.
+    costs = slab_timing.in_turns(
+        flag, winter, f31, [None] + [[dev] * k for k in SLAB_TIMED])
+    base = costs[0]["host_syncs_a_day"]
+    for c in costs[1:]:
+        if c["host_syncs_a_day"] > base:
+            raise RuntimeError(f"{c['slabs']} slabs: {c['host_syncs_a_day']}"
+                               f" host syncs a day, the unsharded day "
+                               f"{base}")
+    out["day_costs"] = costs
+    for c in costs:
+        print(f"timing: flagship day on {c['slabs']} slab(s) (0: "
+              f"unsharded): " + json.dumps(c) + f" ({smi})")
+
+    rec, text = run_leg("halo_rehearsal", ["--device", str(dev),
+                                           "--bands", str(REHEARSAL_BANDS),
+                                           "--iters", str(REHEARSAL_ITERS)],
+                        tmp, REHEARSAL_LAUNCHES)
+    if "audit OK at 360 rows" not in text:
+        raise RuntimeError(f"halo_rehearsal: no audit line:\n{text[-3000:]}")
+    out["rehearsal"] = dict(
+        seconds=rec["seconds"],
+        grid_ms=_number(r"grid   routed day: ([\d.]+) ms", text,
+                        "rehearsal")[0],
+        packed_ms=_number(r"packed routed day: ([\d.]+) ms", text,
+                          "rehearsal")[0])
+    print("halo rehearsal at 0.5 degrees: exit 0, " + json.dumps(
+        out["rehearsal"]) + f" ({smi})")
+    return out
+
+
 def main() -> None:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -2357,6 +2542,10 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         study = study_path(tmp, dev, smi)
 
+    # 17. Device slabs of one process: the resident path.
+    with tempfile.TemporaryDirectory() as tmp:
+        slab = slab_path(tmp, flag, fblock, winter, dev, smi)
+
     common = dict(route="cuda",
                   source="hybrid9_tpu_torch/csrc/day_kernel.cu",
                   bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
@@ -2416,12 +2605,24 @@ def main() -> None:
                     if k in leg}) for name, leg in study.items()},
              reference_path=dict(launches=ref_launches, max_abs_err=ref_err,
                                  ms=ref_kernel_ms, plain_ms=ref_plain_ms,
-                                 cells=N_CELLS)),
+                                 cells=N_CELLS),
+             slab_path=dict(
+                 days=SLAB_DAYS,
+                 launches={f"slabs_{k}": v["launches"]
+                           for k, v in slab["blocks"].items()},
+                 run_loop_launches={f"slabs_{k}": v["launches"]
+                                    for k, v in slab["run_loop"].items()},
+                 day_launches={f"slabs_{c['slabs']}": c[
+                     "day_kernel_launches_a_day"]
+                     for c in slab["day_costs"]},
+                 bitwise_unsharded=True)),
         dict(common, name="hydrology_day_sharded",
              replaces="hybrid9_tpu/physics/pallas_day.py:220",
              launches=sharded_launches, max_abs_err=sharded_err,
              ms=fms["sharded_4"], plain_ms=sharded_plain_ms,
-             slabs=SLABS, one_slab_ms=fms["sharded_1"]),
+             slabs=SLABS, one_slab_ms=fms["sharded_1"],
+             resident_path="launches hydrology_day once a slab a day "
+                           "(phase 17), not this launcher"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -26,7 +26,10 @@ Multi-process runs launch the same command in every process with
 --shard ...``, or ``WORLD_SIZE``/``RANK``/``MASTER_ADDR``/``MASTER_PORT``
 set by hand): each rank owns one slab of the packed cell axis, reads
 only its own forcing, writes a part file that rank 0 stitches and saves
-its own checkpoint (parallel/).
+its own checkpoint (parallel/).  ``run --shard`` in one process takes
+every visible card: the cells are cut once into a slab a card, which
+each card keeps from day to day, and the dense routers and lateral
+groundwater run split into row bands (``parallel.sharding.DeviceSlabs``).
 """
 
 from __future__ import annotations
@@ -692,7 +695,8 @@ def main(argv=None) -> int:
                          "(a site name of DEBUG_SITES or lon,lat)")
     pr.add_argument("--shard", action="store_true",
                     help="shard cells over the processes of a "
-                         "multi-process launch (each rank owns a slab)")
+                         "multi-process launch (each rank owns a slab); "
+                         "in one process, over every visible card")
     pr.add_argument("--spinup-carbon", type=int, default=0,
                     metavar="MAX_YEARS",
                     help="equilibrate the carbon and vegetation pools under "

@@ -114,3 +114,22 @@ class DeviceSyntheticForcingProvider:
         if self.sharding is None:
             return block
         return self.sharding.put_block(block)
+
+    def slab_block(self, slabs, year: int, start_doy: int,
+                   n_days: int) -> list:
+        """The block cut over device slabs (``parallel.sharding.
+        DeviceSlabs``, over the rank's slab under ``sharding``): each
+        device the slabs name draws the global block once and keeps its
+        slabs' columns, bitwise the global block's, so the columns are
+        made where they are used."""
+        offset = 0 if self.sharding is None else self.sharding.lo
+        blocks = {}
+        parts = []
+        for device, (lo, hi) in zip(slabs.devices, slabs.bounds):
+            if device not in blocks:
+                blocks[device] = generate_block(
+                    self.seed, year, start_doy, n_days, self.n,
+                    self.lat.to(device), self.dtype)
+            parts.append(blocks[device].map(
+                lambda x: x[:, offset + lo:offset + hi].contiguous()))
+        return parts

@@ -71,9 +71,19 @@ def to_device(arrays: Dict[str, np.ndarray], device: torch.device
     return Forcing(**{k: put(v) for k, v in arrays.items()})
 
 
+def to_slabs(arrays: Dict[str, np.ndarray], slabs) -> list:
+    """The numpy ``[days, n]`` ``arrays`` cut over device slabs
+    (``parallel.sharding.DeviceSlabs``): one Forcing a slab, each copied
+    from the host straight to the slab's device (:func:`to_device`), so no
+    device holds another slab's columns."""
+    return [to_device({k: v[:, lo:hi] for k, v in arrays.items()}, device)
+            for device, (lo, hi) in zip(slabs.devices, slabs.bounds)]
+
+
 class _HostProvider:
     """A provider whose block is made in numpy by ``host_block`` and
-    copied to ``device`` when the provider is called."""
+    copied to ``device`` when the provider is called, or to each device
+    slab's device by ``slab_block``."""
 
     device: torch.device
 
@@ -84,6 +94,11 @@ class _HostProvider:
     def __call__(self, year: int, start_doy: int, n_days: int) -> Forcing:
         return to_device(self.host_block(year, start_doy, n_days),
                          self.device)
+
+    def slab_block(self, slabs, year: int, start_doy: int,
+                   n_days: int) -> list:
+        """The block as one Forcing a device slab (:func:`to_slabs`)."""
+        return to_slabs(self.host_block(year, start_doy, n_days), slabs)
 
 
 def _np_dtype(dtype: torch.dtype):
@@ -239,13 +254,21 @@ class PrefetchingProvider:
                 self._pending[key] = self._pool.submit(
                     self.provider.host_block, year, start_doy, n_days)
 
-    def __call__(self, year: int, start_doy: int, n_days: int) -> Forcing:
+    def _arrays(self, year: int, start_doy: int, n_days: int
+                ) -> Dict[str, np.ndarray]:
         key = (year, start_doy, n_days)
         with self._lock:
             fut = self._pending.pop(key, None)
-        arrays = (fut.result() if fut is not None
-                  else self.provider.host_block(year, start_doy, n_days))
-        return to_device(arrays, self.device)
+        return (fut.result() if fut is not None
+                else self.provider.host_block(year, start_doy, n_days))
+
+    def __call__(self, year: int, start_doy: int, n_days: int) -> Forcing:
+        return to_device(self._arrays(year, start_doy, n_days), self.device)
+
+    def slab_block(self, slabs, year: int, start_doy: int,
+                   n_days: int) -> list:
+        """The block as one Forcing a device slab (:func:`to_slabs`)."""
+        return to_slabs(self._arrays(year, start_doy, n_days), slabs)
 
     def close(self) -> None:
         """Stop the worker; a block it is building is finished and

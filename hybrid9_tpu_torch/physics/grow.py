@@ -13,6 +13,7 @@ import torch
 
 from . import bounds
 from . import constants as c
+from .layers import layer_tensor
 from ..state import VegState
 
 
@@ -27,7 +28,7 @@ def grow_daily(veg: VegState, smp: torch.Tensor, tas: torch.Tensor,
     ``return_fluxes``.
     """
     nl = smp.shape[1]
-    zi = torch.as_tensor(zi, dtype=smp.dtype, device=smp.device)
+    zi = layer_tensor(zi, smp.dtype, smp.device)
 
     # Root-weighted soil-moisture constraint (GROW.f90:55-62).
     wi_l = (-150000.0 - smp) / (-150000.0 - (-50000.0))

@@ -8,9 +8,28 @@ share one value-level substep (``hydrology.substep_values``).
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence
 
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _layer_constant(values: tuple, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    # Made outside inference mode, as bounds._constant is.
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
+def layer_tensor(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """Static per-layer values (a ``Geometry``'s tuples) as a tensor on
+    ``device``, made once per values, dtype and device: a day then copies
+    no constant from the host, which on the card waits for the device.
+    Values that are not a tuple are copied each call."""
+    if isinstance(values, tuple):
+        return _layer_constant(values, dtype, torch.device(device))
+    return torch.as_tensor(values, dtype=dtype, device=device)
 
 
 def unstack(x: torch.Tensor) -> List[torch.Tensor]:

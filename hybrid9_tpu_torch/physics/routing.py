@@ -28,6 +28,12 @@ sums its rows.  A scatter-add would add with atomics in no fixed order
 on the card, so that a resumed year would not be bit for bit the
 straight one.  Mass is conserved in every scheme: ``sum(S') - sum(S) =
 sum(local) - discharge``.
+
+The dense forms run on row bands of the grid, each band with one halo
+row above and below; the whole grid is one band.  On device slabs
+(``GridRouting.split``, :func:`route_grid_day_split`) each device holds a
+band, the halo rows are copied from the neighbour bands once an inflow
+pass, and the result is bitwise the whole grid's.
 """
 
 from __future__ import annotations
@@ -39,27 +45,47 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..parallel.sharding import Band, RowBanded, Split, halo_rows
+
 # D8 offsets (dy, dx); must match grids/routing.py _D8 order.
 _D8 = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0),
        (1, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _exponent(e: float) -> torch.Tensor:
+    """``e`` as a 0-d CPU tensor for ``torch.pow``.  With a tensor
+    exponent ATen's CPU kernels round every element alike, wherever it
+    lies in the tensor, so a router on row bands is bitwise the router on
+    the whole grid (with a Python float exponent the scalar CPU kernels
+    round a tensor's last elements another way); on the card it is the
+    kernel of a float exponent.  Made outside inference mode, as
+    ``bounds._constant`` is."""
+    with torch.inference_mode(False):
+        return torch.tensor(e, dtype=torch.float64)
 
 
 def _celerity_fraction(store, flow_length, dt_r, c0, s_ref, beta, c_min,
                        c_max):
     """CFL-bounded per-substep transfer fraction f = min(1, c dt / L)."""
     s = torch.clamp(store, min=0.0) / s_ref
-    c = torch.clamp(c0 * torch.pow(s + 1e-12, beta), c_min, c_max)
+    c = torch.clamp(c0 * torch.pow(s + 1e-12, _exponent(beta)), c_min,
+                    c_max)
     return torch.clamp(c * dt_r / flow_length, max=1.0)
 
 
-def _d8_inflow(out, masks):
-    """Dense D8 inflow stencil: cells with direction code k send ``out``
-    to the (dy, dx) neighbour, i.e. shift their mask-selected outflow by
-    (+dy, +dx).  ``masks[k]`` are the float direction weights of
-    :attr:`GridKinematicParams.stencil`."""
-    inflow = torch.zeros_like(out)
+def _d8_inflow(ext, masks):
+    """Dense D8 inflow stencil on a band of rows: cells with direction
+    code k send their outflow to the (dy, dx) neighbour, i.e. shift their
+    mask-selected outflow by (+dy, +dx).  ``ext`` is the band's ``[h, nx]``
+    outflow with one halo row above and one below (``halo_rows``), and
+    ``masks[k]`` the direction weights over the same ``h + 2`` rows
+    (:func:`_bands`).  The shift across rows reads the halo, the shift
+    across columns wraps in longitude."""
+    h = ext.shape[0] - 2
+    inflow = torch.zeros_like(ext[1:-1])
     for k, (dy, dx) in enumerate(_D8):
-        inflow = inflow + torch.roll(masks[k] * out, (dy, dx), (0, 1))
+        inflow = inflow + torch.roll(masks[k] * ext, dx, 1)[1 - dy:1 - dy + h]
     return inflow
 
 
@@ -193,7 +219,7 @@ def _mc_hydraulics(s, length, width, area, slope, sqrt_s0, n_manning,
     with q = v h (Cunge 1969).  Returns ``(k_t, x_w)``."""
     vol = torch.clamp(s, min=0.0) * 1.0e-3 * area              # m^3
     h = torch.clamp(vol / (width * length), min=1.0e-4)        # m
-    v = torch.pow(h, 2.0 / 3.0) * sqrt_s0 / n_manning          # m/s
+    v = torch.pow(h, _exponent(2.0 / 3.0)) * sqrt_s0 / n_manning  # m/s
     cel = torch.clamp(5.0 / 3.0 * v, c_min, c_max)
     k_t = length / cel                                         # s
     x_w = torch.clamp(0.5 * (1.0 - (v * h) / (slope * cel * length)),
@@ -274,6 +300,74 @@ class GridKinematicParams:
         return (land, masks, land.to(dtype),
                 (self.dir_code == 8).to(dtype), length)
 
+    @functools.cached_property
+    def whole(self) -> tuple:
+        """The operands as one row band of every row (:func:`_bands`),
+        made once per network."""
+        return _whole(self)
+
+
+def _bands(p, rows, devices) -> tuple:
+    """The dense router ``p``'s operands cut into the row bands ``rows[b]``
+    on ``devices[b]`` (``parallel.sharding.Band``): the fields of its
+    stencil and the land mask on the band's rows, the direction weights on
+    them with one halo row above and one below (zero rows beyond the
+    poles: the network never points a cell across a pole, so the global
+    roll brings exact zeros there too)."""
+    fields = _stencil_fields(p)
+    zero = torch.zeros_like(fields["masks"][0][:1])
+    masks = [torch.cat([zero, m, zero]) for m in fields["masks"]]
+    nx = zero.shape[1]
+    out = []
+    for (r0, r1), device in zip(rows, devices):
+        band = {k: v[r0:r1].to(device) for k, v in fields.items()
+                if k != "masks"}
+        band["masks"] = [m[r0:r1 + 2].to(device) for m in masks]
+        out.append(Band(r0=r0, r1=r1, nx=nx, device=device, fields=band))
+    return tuple(out)
+
+
+def _stencil_fields(p) -> dict:
+    """The stencil of a dense router's params by name, with its land
+    mask."""
+    if isinstance(p, GridKinematicParams):
+        land, masks, landf, oceanf, length = p.stencil
+        return dict(land=land, masks=masks, landf=landf, oceanf=oceanf,
+                    length=length)
+    masks, landf, oceanf, slope, sqrt_s0, length, width, area = p.stencil
+    return dict(land=p.dir_code >= 0, masks=masks, landf=landf,
+                oceanf=oceanf, slope=slope, sqrt_s0=sqrt_s0, length=length,
+                width=width, area=area)
+
+
+def _whole(p) -> tuple:
+    """``p``'s operands as one band of every row on their own device."""
+    return _bands(p, ((0, p.dir_code.shape[0]),), (p.dir_code.device,))
+
+
+def _kinematic_bands(stores, locals_, p, bands):
+    """The kinematic-wave day of :func:`route_kinematic_day_grid` on row
+    bands (one ``[h, nx]`` store and runoff a band), one halo exchange a
+    substep.  Returns the bands' ``(new_store, discharge)`` lists."""
+    dt_r = 86400.0 / p.n_substeps
+    f = [b.fields for b in bands]
+    local_sub = [torch.where(g["land"], x / p.n_substeps, 0.0)
+                 for g, x in zip(f, locals_)]
+    s = list(stores)
+    dis = [torch.zeros_like(x) for x in s]
+    for _ in range(p.n_substeps):
+        out = []
+        for g, x in zip(f, s):
+            frac = _celerity_fraction(x, g["length"], dt_r, p.c0, p.s_ref,
+                                      p.beta, p.c_min, p.c_max)
+            out.append(g["landf"] * frac * torch.clamp(x, min=0.0))
+        ext = halo_rows(out, bands)
+        # (s - out) first keeps the store non-negative in float32.
+        s = [(x - o) + ls + g["landf"] * _d8_inflow(e, g["masks"])
+             for g, x, o, ls, e in zip(f, s, out, local_sub, ext)]
+        dis = [d + g["oceanf"] * o for g, d, o in zip(f, dis, out)]
+    return s, dis
+
 
 def route_kinematic_day_grid(store: torch.Tensor, local_mm: torch.Tensor,
                              p: GridKinematicParams
@@ -285,19 +379,9 @@ def route_kinematic_day_grid(store: torch.Tensor, local_mm: torch.Tensor,
     (grids/routing.py ``build_downstream_index``).  Returns
     ``(new_store, discharge)`` as ``[ny, nx]`` fields; ``discharge`` is
     the water each cell delivered to the ocean outlet over the day (mm).
+    The whole grid is one row band of :func:`_kinematic_bands`.
     """
-    land, masks, landf, oceanf, length = p.stencil
-    dt_r = 86400.0 / p.n_substeps
-    local_sub = torch.where(land, local_mm / p.n_substeps, 0.0)
-    s, dis = store, torch.zeros_like(store)
-    for _ in range(p.n_substeps):
-        frac = _celerity_fraction(s, length, dt_r, p.c0, p.s_ref, p.beta,
-                                  p.c_min, p.c_max)
-        out = landf * frac * torch.clamp(s, min=0.0)
-        inflow = _d8_inflow(out, masks)
-        # (s - out) first keeps the store non-negative in float32.
-        s = (s - out) + local_sub + landf * inflow
-        dis = dis + oceanf * out
+    (s,), (dis,) = _kinematic_bands([store], [local_mm], p, p.whole)
     return s, dis
 
 
@@ -337,38 +421,62 @@ class GridMuskingumParams:
                 torch.where(land, self.width, 1.0),
                 torch.where(land, self.cell_area, 1.0))
 
+    @functools.cached_property
+    def whole(self) -> tuple:
+        """The operands as one row band of every row (:func:`_bands`),
+        made once per network."""
+        return _whole(self)
+
+
+def _muskingum_bands(stores, locals_, p, bands):
+    """The Muskingum-Cunge day of :func:`route_muskingum_day_grid` on row
+    bands, two halo exchanges a substep (one an inflow pass)."""
+    dt_r = 86400.0 / p.n_substeps
+    f = [b.fields for b in bands]
+    local_sub = [torch.where(g["land"], x / p.n_substeps, 0.0)
+                 for g, x in zip(f, locals_)]
+    s = list(stores)
+    dis = [torch.zeros_like(x) for x in s]
+    for _ in range(p.n_substeps):
+        hyd = [_mc_hydraulics(x, g["length"], g["width"], g["area"],
+                              g["slope"], g["sqrt_s0"], p.n_manning,
+                              p.c_min, p.c_max) for g, x in zip(f, s)]
+        out_kin = [g["landf"] * torch.clamp(dt_r / k_t, max=1.0) * x
+                   for g, x, (k_t, _) in zip(f, s, hyd)]
+        ext = halo_rows(out_kin, bands)
+        out = []
+        for g, x, (k_t, x_w), ls, e in zip(f, s, hyd, local_sub, ext):
+            i_rate = (_d8_inflow(e, g["masks"]) + ls) / dt_r
+            o_rate = (x / k_t - x_w * i_rate) / (1.0 - x_w)       # mm/s
+            out.append(g["landf"] * torch.minimum(
+                torch.clamp(o_rate * dt_r, min=0.0), torch.clamp(x, min=0.0)))
+        ext = halo_rows(out, bands)
+        s = [(x - o) + ls + g["landf"] * _d8_inflow(e, g["masks"])
+             for g, x, o, ls, e in zip(f, s, out, local_sub, ext)]
+        dis = [d + g["oceanf"] * o for g, d, o in zip(f, dis, out)]
+    return s, dis
+
 
 def route_muskingum_day_grid(store: torch.Tensor, local_mm: torch.Tensor,
                              p: GridMuskingumParams
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense ``[ny, nx]`` Muskingum-Cunge day step: the hydraulics and
     the conservative clip of :func:`route_muskingum_day`, with the two
-    inflow passes of each substep on the roll stencil."""
-    masks, landf, oceanf, slope, sqrt_s0, length, width, area = p.stencil
-    dt_r = 86400.0 / p.n_substeps
-    local_sub = torch.where(p.dir_code >= 0, local_mm / p.n_substeps, 0.0)
-    s, dis = store, torch.zeros_like(store)
-    for _ in range(p.n_substeps):
-        k_t, x_w = _mc_hydraulics(s, length, width, area, slope, sqrt_s0,
-                                  p.n_manning, p.c_min, p.c_max)
-        out_kin = landf * torch.clamp(dt_r / k_t, max=1.0) * s
-        i_rate = (_d8_inflow(out_kin, masks) + local_sub) / dt_r
-        o_rate = (s / k_t - x_w * i_rate) / (1.0 - x_w)           # mm/s
-        out = landf * torch.minimum(torch.clamp(o_rate * dt_r, min=0.0),
-                                    torch.clamp(s, min=0.0))
-        s = (s - out) + local_sub + landf * _d8_inflow(out, masks)
-        dis = dis + oceanf * out
+    inflow passes of each substep on the roll stencil (the whole grid is
+    one row band of :func:`_muskingum_bands`)."""
+    (s,), (dis,) = _muskingum_bands([store], [local_mm], p, p.whole)
     return s, dis
 
 
 @dataclasses.dataclass(frozen=True)
-class GridRouting:
+class GridRouting(RowBanded):
     """Packed-axis wrapper around the dense routers.
 
     ``flat_idx[n]``: flattened ``ny * nx`` grid index of each packed
     lane (int64).  Land lanes come first; the padding lanes
     ``lane >= n_land`` carry the out-of-range index ``ny * nx`` and are
-    never scattered or gathered.
+    never scattered or gathered.  ``split(slabs)`` cuts the router over
+    device slabs (:func:`route_grid_day_split`).
     """
 
     params: object          # GridKinematicParams | GridMuskingumParams
@@ -377,9 +485,17 @@ class GridRouting:
     ny: int = 0
     nx: int = 0
 
+    def _grid(self) -> tuple:
+        return self.flat_idx.cpu().numpy(), self.n_land, self.ny, self.nx
+
+    def _bands(self, rows, devices) -> tuple:
+        return _bands(self.params, rows, devices)
+
 
 _DENSE_ROUTERS = {GridKinematicParams: route_kinematic_day_grid,
                   GridMuskingumParams: route_muskingum_day_grid}
+_BAND_ROUTERS = {GridKinematicParams: _kinematic_bands,
+                 GridMuskingumParams: _muskingum_bands}
 
 
 def route_grid_day(store: torch.Tensor, local_runoff_mm: torch.Tensor,
@@ -405,3 +521,28 @@ def route_grid_day(store: torch.Tensor, local_runoff_mm: torch.Tensor,
     discharge = torch.cat([dis.reshape(-1)[idx],
                            torch.zeros_like(store[r.n_land:])])
     return new_store, discharge
+
+
+def route_grid_day_split(stores: list, local_runoff_mm: list,
+                         split: Split) -> Tuple[list, list]:
+    """:func:`route_grid_day` on device slabs, bitwise its result: each
+    slab's ``[n_slab]`` store and runoff go to the row bands in one
+    reshard, the router runs band by band on the bands' devices with halo
+    rows from the neighbour bands (``2 (k - 1)`` row copies an inflow
+    pass: one pass a substep for the kinematic wave, two for
+    Muskingum-Cunge), and the new store and discharge come back to the
+    slabs in one reshard.  No device holds the whole grid.  Returns the
+    slabs' ``(new_store, discharge)`` lists."""
+    r = split.params
+    route = _BAND_ROUTERS.get(type(r.params))
+    if route is None:
+        raise TypeError(f"route_grid_day: no dense router for "
+                        f"{type(r.params).__name__}")
+    dense = split.reshard.dense([torch.stack([s, x]) for s, x in
+                                 zip(stores, local_runoff_mm)])
+    s2, dis = route([d[0] for d in dense], [d[1] for d in dense], r.params,
+                    split.bands)
+    back = split.reshard.packed(
+        [torch.stack([s, d]) for s, d in zip(s2, dis)],
+        [torch.stack([s, torch.zeros_like(s)]) for s in stores])
+    return [x[0] for x in back], [x[1] for x in back]

@@ -18,7 +18,7 @@ import torch
 
 from . import bounds
 from . import constants as c
-from .layers import stack, unstack
+from .layers import layer_tensor, stack, unstack
 from .soilwater import _thomas_solve
 
 K_DRY = 0.30       # Dry soil thermal conductivity            (W/m/K)
@@ -142,8 +142,8 @@ def phase_change(t_soil: torch.Tensor, liq_mm: torch.Tensor,
     ``dz_mm`` the static layer thicknesses (mm).  Returns ``(t_new,
     liq_new, ice_new)``.
     """
-    dz_m = torch.as_tensor(dz_mm, dtype=t_soil.dtype,
-                           device=t_soil.device)[None, :] / 1000.0
+    dz_m = layer_tensor(dz_mm, t_soil.dtype,
+                        t_soil.device)[None, :] / 1000.0
     th_liq = liq_mm / (dz_m * 1000.0)
     th_ice = ice_mm / (dz_m * 1000.0)
     hc = (C_SOLID * (1.0 - theta_s) + C_WATER * th_liq

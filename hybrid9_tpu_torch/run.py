@@ -11,7 +11,10 @@ physics; ``run_year`` streams forcing block by block, ``run`` writes the
 annual files and checkpoints.  Under a ``sharding`` (one rank of a
 multi-process run, parallel/sharding.py) the simulation holds the rank's
 slab of the cell axis, and the router and lateral groundwater run on the
-gathered axis.
+gathered axis.  With several ``devices`` (or a sharding over several) it
+holds its cells as device slabs (``parallel.sharding.DeviceSlabs``): the
+state, parameters, forcing and sums of each slab stay on its device from
+day to day, and the run loop's days are ``step.slab_block_step``.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from .grids.routing import (bankfull_width_m, cell_area_m2,
                             slope_from_accumulation)
 from .io.writer import FocusCSVWriter, to_host
 from .parallel.launch import local_device, process_count
-from .parallel.sharding import Gathered
+from .parallel.sharding import DeviceSlabs, Gathered
 from .physics.hydrology import Geometry
 from .physics.lateral import make_lateral_params
 from .physics.routing import (GridKinematicParams, GridMuskingumParams,
@@ -40,7 +43,7 @@ from .physics.routing import (GridKinematicParams, GridMuskingumParams,
 from .physics.snow import SnowParams, TwoLayerSnowParams
 from .state import AnnualAccumulators, Forcing, ModelState, SoilParams, \
     initial_state
-from .step import annual_means, block_step
+from .step import annual_means, block_step, slab_block_step
 from .utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -75,13 +78,23 @@ class Simulation:
 
     ``params`` (and ``state``, when given) say where the run lives: every
     tensor made here goes to their device.  ``devices`` optionally names
-    the devices whose slabs of cells the hydrology day runs on
-    (``hydrology_day_sharded``).  With ``sharding`` (a
+    devices of that type to hold the cells as slabs, one a device (a
+    device may repeat): the state, the parameters and each block's
+    forcing and sums stay on the slabs' devices across days, the
+    cell-local modules run slab by slab, and the router and lateral
+    groundwater exchange halo rows and reshards or gather once a day
+    (``step.slab_block_step``).  ``state`` is then a property: reading it
+    gathers the slabs onto the first device, setting it cuts them again,
+    and a checkpoint holds the gathered state, so a run resumes at any
+    number of slabs.  ``step_kwargs()`` still names the devices, so a
+    caller of ``day_step`` on the whole state runs its hydrology day
+    through ``hydrology_day_sharded``.  With ``sharding`` (a
     ``parallel.sharding.CellSharding``) the run is one rank's: ``params``
     and ``state`` are cut to its slab ``[host_lo, host_hi)`` (a slab given
     passes through), the hydrology day runs on the rank's devices, and the
     router and lateral groundwater gather their operands from every rank
-    once a day.  With ``cfg.interactive`` and a
+    once a day; a rank of several devices cuts its slab over them.  With
+    ``cfg.interactive`` and a
     ``land_grid``, the land cell nearest ``(site_lon, site_lat)`` is the
     focus cell whose daily rows go to ``focus_daily.csv`` and
     ``focus_wt.csv`` (the reference's single-point debug mode,
@@ -115,8 +128,16 @@ class Simulation:
         if state is None:
             state = initial_state(params, self.grid.dz, self.grid.zi,
                                   self.dtype, self.device)
-        self.state = state
         self.devices = None if devices is None else list(devices)
+        self.slabs = None
+        if devices is not None:
+            self.slabs = DeviceSlabs.create(self.n, devices)
+            if self.slabs.devices[0].type != self.device.type:
+                raise ValueError(
+                    f"parameters on {self.device} cannot be cut over "
+                    f"{[str(d) for d in self.slabs.devices]}")
+            self._param_slabs = self.slabs.put(params)
+        self.state = state
         self.use_kernel = cfg.use_kernel
         if self.use_kernel is None:
             self.use_kernel = self.device.type == "cuda"
@@ -166,6 +187,18 @@ class Simulation:
         #: Per simulated year: wall seconds of the year, of waiting on
         #: forcing, of the annual output and of the checkpoint.
         self.timings: List[Dict[str, float]] = []
+
+    @property
+    def state(self) -> ModelState:
+        """The model state over this run's cells; on device slabs gathered
+        onto the first device (a copy of every slab, each read)."""
+        if self.slabs is None:
+            return self._state
+        return self.slabs.gather(self._state, "state")
+
+    @state.setter
+    def state(self, state: ModelState) -> None:
+        self._state = state if self.slabs is None else self.slabs.put(state)
 
     def _gathered(self, params):
         """A cross-cell module's global ``params``, wrapped to gather its
@@ -257,6 +290,56 @@ class Simulation:
             snow_albedo=self.snow_albedo,
             carbon=cfg.carbon and cfg.vegetation)
 
+    def accumulators(self):
+        """Zeroed annual sums for :meth:`advance`: one set a slab on its
+        device with device slabs."""
+        def zeros(n, device):
+            return AnnualAccumulators.zeros(n, self.dtype, device,
+                                            nsoil=self.grid.nsoil)
+        if self.slabs is None:
+            return zeros(self.n, self.device)
+        return [zeros(hi - lo, d)
+                for d, (lo, hi) in zip(self.slabs.devices, self.slabs.bounds)]
+
+    def forcing_block(self, provider, year: int, start_doy: int,
+                      n_days: int):
+        """``provider``'s block of ``n_days`` from ``start_doy``: on device
+        slabs each slab's columns delivered to its device where the
+        provider can (``slab_block``), else the whole block, which
+        :meth:`advance` cuts."""
+        if self.slabs is not None and hasattr(provider, "slab_block"):
+            return provider.slab_block(self.slabs, year, start_doy, n_days)
+        return provider(year, start_doy, n_days)
+
+    def advance(self, block, acc):
+        """The state advanced over the days of a forcing block (a
+        ``Forcing`` of ``[days, n]``, or on device slabs one a slab),
+        with the days added to ``acc`` (:meth:`accumulators`).  Returns
+        ``(acc, rows)``: ``rows`` the focus cell's stacked daily rows, or
+        None without a focus cell."""
+        run = (self.geom, self.cfg.dt, self.cfg.nisurf)
+        if self.slabs is None:
+            out = block_step(self._state, acc, block, self.params, *run,
+                             focus_idx=self.focus_idx, **self.step_kwargs())
+        else:
+            if not isinstance(block, list):
+                block = self.slabs.put_block(block)
+            out = slab_block_step(self.slabs, self._state, acc, block,
+                                  self._param_slabs, *run,
+                                  focus_idx=self.focus_idx,
+                                  **self.step_kwargs())
+        self._state, acc = out[:2]
+        return acc, (out[2] if len(out) > 2 else None)
+
+    def host_means(self, acc) -> Dict[str, np.ndarray]:
+        """The annual means of ``acc`` as float64 numpy arrays over this
+        run's cells: one device-to-host copy (one a slab, joined in cell
+        order)."""
+        if self.slabs is None:
+            return to_host(annual_means(acc, self.cfg.nisurf))
+        return self.slabs.host([annual_means(a, self.cfg.nisurf)
+                                for a in acc])
+
     def run_year(self, year: int,
                  forcing_provider: Callable[[int, int, int], Forcing],
                  block_days: Optional[int] = None
@@ -267,13 +350,12 @@ class Simulation:
         of ``[n_days, n]`` tensors on the run's device (data/forcing.py).
         Inside the year the host waits for the device only to copy the
         focus rows of each block; the means come to the host in one copy
-        at its end, which closes the timed year.
+        (one a slab) at its end, which closes the timed year.
         """
         cfg = self.cfg
         ndays = calendar.days_in_year(year)
         block_days = block_days or cfg.forcing_block_days
-        acc = AnnualAccumulators.zeros(self.n, self.dtype, self.device,
-                                       nsoil=self.grid.nsoil)
+        acc = self.accumulators()
         t0 = time.perf_counter()
         wait = 0.0
         doy = 1
@@ -291,20 +373,14 @@ class Simulation:
                     prefetch(year + 1, 1,
                              min(block_days, calendar.days_in_year(year + 1)))
             tw = time.perf_counter()
-            block = forcing_provider(year, doy, nblk)
+            block = self.forcing_block(forcing_provider, year, doy, nblk)
             wait += time.perf_counter() - tw
-            out = block_step(self.state, acc, block, self.params, self.geom,
-                             cfg.dt, cfg.nisurf, focus_idx=self.focus_idx,
-                             **self.step_kwargs())
-            if self.focus_idx is not None:
-                self.state, acc, rows = out
-                if self.focus_writer is not None:
-                    self.focus_writer.append(year, doy, rows)
-            else:
-                self.state, acc = out
+            acc, rows = self.advance(block, acc)
+            if rows is not None and self.focus_writer is not None:
+                self.focus_writer.append(year, doy, rows)
             doy += nblk
 
-        means = to_host(annual_means(acc, cfg.nisurf))
+        means = self.host_means(acc)
         elapsed = time.perf_counter() - t0
         self._health_check(year, means)
         # Land lanes only: padding lanes carry cell 0's forcing.

@@ -16,15 +16,23 @@ groundwater exchange after routing and the hydrology-only mode
 multi-process run the router and the lateral exchange come wrapped in
 ``parallel.sharding.Gathered``: their operands are gathered from every
 rank and the global function runs on them.
+
+A day is three parts: the cell-local modules before routing (snow,
+impedance, the hydrology day, growth), the cross-cell modules (the router,
+lateral groundwater) and the cell-local modules after them (soil heat and
+ice, carbon); the accumulation follows.  On device slabs
+(``slab_day_step``, ``slab_block_step``) the cell-local parts run slab by
+slab on the slabs' devices and the cross-cell part exchanges only what
+it must: halo rows and reshards of the row bands, or a gather a day.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from .parallel.sharding import Gathered
+from .parallel.sharding import DeviceSlabs, Gathered
 from .physics import bounds
 from .physics import constants as c
 from .physics.carbon import carbon_daily
@@ -32,11 +40,13 @@ from .physics.day_kernel import (hydrology_day, hydrology_day_plain,
                                  hydrology_day_sharded)
 from .physics.grow import grow_daily
 from .physics.hydrology import Geometry
-from .physics.lateral import LateralParams, lateral_groundwater_step
+from .physics.layers import layer_tensor
+from .physics.lateral import (LateralParams, lateral_groundwater_step,
+                              lateral_groundwater_step_split)
 from .physics.routing import (GridRouting, KinematicParams,
                               MuskingumParams, RoutingParams, route_daily,
-                              route_grid_day, route_kinematic_day,
-                              route_muskingum_day)
+                              route_grid_day, route_grid_day_split,
+                              route_kinematic_day, route_muskingum_day)
 from .physics.snow import (SnowParams, TwoLayerSnowParams, snow_step,
                            snow_step_two_layer)
 from .physics.soiltemp import (freeze_impedance, freeze_impedance_from_ice,
@@ -88,6 +98,43 @@ def day_step(state: ModelState, forcing: Forcing, params: SoilParams,
     kernel itself (the JAX package ran a one-cell shadow of the day for
     it).
     """
+    mid = _before_routing(state, forcing, params, geom, dt, nisurf,
+                          use_kernel=use_kernel, snow=snow, freeze=freeze,
+                          vegetation=vegetation, soil_ice=soil_ice,
+                          devices=devices, zd09_every=zd09_every,
+                          snow_albedo=snow_albedo, focus_idx=focus_idx)
+    river, diags = _route(state.river_store, mid.diags, routing)
+    soil = _lateral(mid.soil, lateral)
+    return _after_routing(state, mid, river, soil, diags, params, geom,
+                          soil_ice, carbon)
+
+
+class _Midday(NamedTuple):
+    """What the cell-local part of a day before routing leaves for the
+    rest of it: the forcing as the snowpack reshaped it, the snow state,
+    the absorptivity, the soil after the hydrology day, the grown
+    vegetation, the day's diagnostics so far and the litterfall and
+    growth fluxes the carbon cascade reads."""
+
+    forcing: Forcing
+    swe: torch.Tensor
+    snowpack: object
+    sw_abs: Optional[torch.Tensor]
+    soil: object
+    veg: object
+    diags: Dict[str, torch.Tensor]
+    litterfall: torch.Tensor
+    vflux: Dict[str, torch.Tensor]
+
+
+def _before_routing(state, forcing, params, geom, dt, nisurf,
+                    use_kernel=None, snow=None, freeze: bool = False,
+                    vegetation: bool = True, soil_ice: bool = False,
+                    devices=None, zd09_every: int = 1, snow_albedo=None,
+                    focus_idx=None) -> _Midday:
+    """The cell-local part of a day before routing: the snowpack, the
+    frozen-soil impedance, the hydrology day and growth (``day_step``'s
+    keywords and defaults)."""
     swe = state.swe
     snowpack = state.snowpack
     snow_capped = None
@@ -129,18 +176,26 @@ def day_step(state: ModelState, forcing: Forcing, params: SoilParams,
     diags = dict(diags, npp=npp, **vflux)
     if snow_capped is not None:        # capped-pack ice runoff (mm)
         diags["rnf_day"] = diags["rnf_day"] + snow_capped
-    river, diags = _route(state.river_store, diags, routing)
-    soil = _lateral(soil, lateral)
-    t_soil, soil, ice = _soil_thermal(state, soil, params, forcing, geom,
-                                      soil_ice, sw_abs)
-    cstate, rh, nee, cflux = _carbon(state.carbon, vflux, litterfall,
-                                     t_soil, soil, params, geom, carbon)
+    return _Midday(forcing, swe, snowpack, sw_abs, soil, veg, diags,
+                   litterfall, vflux)
+
+
+def _after_routing(state, mid: _Midday, river, soil, diags, params, geom,
+                   soil_ice: bool, carbon: bool):
+    """The cell-local part of a day after routing and the lateral
+    exchange: soil heat and ice, and the carbon cascade.  Returns the
+    day's ``(state, diags)``."""
+    t_soil, soil, ice = _soil_thermal(state, soil, params, mid.forcing, geom,
+                                      soil_ice, mid.sw_abs)
+    cstate, rh, nee, cflux = _carbon(state.carbon, mid.vflux,
+                                     mid.litterfall, t_soil, soil, params,
+                                     geom, carbon)
     diags["rh"] = rh
     diags["nee"] = nee
     diags.update(cflux)
-    return ModelState(soil=soil, veg=veg, river_store=river,
-                      t_soil=t_soil, swe=swe, h2osoi_ice=ice,
-                      snowpack=snowpack, carbon=cstate), diags
+    return ModelState(soil=soil, veg=mid.veg, river_store=river,
+                      t_soil=t_soil, swe=mid.swe, h2osoi_ice=ice,
+                      snowpack=mid.snowpack, carbon=cstate), diags
 
 
 def _two_layer_snow(swe, snowpack, forcing, snow):
@@ -177,7 +232,7 @@ def _grow(veg, soil, forcing, geom, vegetation: bool):
 
 def _theta(h2osoi: torch.Tensor, dz_soil) -> torch.Tensor:
     """Volumetric water content ``[n, nl]`` of ``h2osoi`` (mm)."""
-    dz = torch.as_tensor(dz_soil, dtype=h2osoi.dtype, device=h2osoi.device)
+    dz = layer_tensor(dz_soil, h2osoi.dtype, h2osoi.device)
     return h2osoi / (dz[None, :] * c.RHOW / 1.0e3)
 
 
@@ -208,9 +263,14 @@ def _route(river_store, diags, routing):
     On one rank's slab (``routing`` a ``Gathered``) the runoff and the
     store are gathered from every rank, routed over the whole network and
     cut back to the slab."""
+    store, discharge = _routed(river_store, diags["rnf_day"], routing)
+    return store, dict(diags, discharge=discharge)
+
+
+def _routed(store, rnf, routing):
+    """``(new_store, discharge)`` of :func:`_route`."""
     if routing is None:
-        return river_store, dict(diags,
-                                 discharge=torch.zeros_like(river_store))
+        return store, torch.zeros_like(store)
     sharding = None
     if isinstance(routing, Gathered):
         routing, sharding = routing.params, routing.sharding
@@ -218,13 +278,11 @@ def _route(river_store, diags, routing):
     if route is None:
         raise TypeError(f"no router for {type(routing).__name__}")
     if sharding is None:
-        new_store, discharge = route(river_store, diags["rnf_day"], routing)
-        return new_store, dict(diags, discharge=discharge)
-    rnf, store = sharding.all_gather_cells(
-        torch.stack([diags["rnf_day"], river_store]), "routing")
-    new_store, discharge = route(store, rnf, routing)
-    return sharding.local(new_store), dict(
-        diags, discharge=sharding.local(discharge))
+        return route(store, rnf, routing)
+    rnf, whole = sharding.all_gather_cells(torch.stack([rnf, store]),
+                                           "routing")
+    new_store, discharge = route(whole, rnf, routing)
+    return sharding.local(new_store), sharding.local(discharge)
 
 
 def _lateral(soil, lateral):
@@ -233,18 +291,69 @@ def _lateral(soil, lateral):
     over the gathered ``wa`` and ``zwt`` of every rank."""
     if lateral is None:
         return soil
+    return soil.replace(wa=_exchanged(soil.wa, soil.zwt, lateral))
+
+
+def _exchanged(wa, zwt, lateral):
+    """The aquifer store after :func:`_lateral`'s exchange."""
     sharding = None
     if isinstance(lateral, Gathered):
         lateral, sharding = lateral.params, lateral.sharding
     if not isinstance(lateral, LateralParams):
         raise TypeError(f"no lateral exchange for {type(lateral).__name__}")
     if sharding is None:
-        wa_new, _ = lateral_groundwater_step(soil.wa, soil.zwt, lateral)
-        return soil.replace(wa=wa_new)
-    wa, zwt = sharding.all_gather_cells(torch.stack([soil.wa, soil.zwt]),
-                                        "lateral")
-    wa_new, _ = lateral_groundwater_step(wa, zwt, lateral)
-    return soil.replace(wa=sharding.local(wa_new))
+        return lateral_groundwater_step(wa, zwt, lateral)[0]
+    wa, zwt = sharding.all_gather_cells(torch.stack([wa, zwt]), "lateral")
+    return sharding.local(lateral_groundwater_step(wa, zwt, lateral)[0])
+
+
+def _in_one_process(module):
+    """A cross-cell module's params for device slabs: a ``Gathered`` of a
+    one-rank run (whose exchange moves nothing) is the params it wraps."""
+    if isinstance(module, Gathered) and module.sharding.world == 1:
+        return module.params
+    return module
+
+
+def _route_slabs(slabs: DeviceSlabs, stores, rnfs, routing):
+    """:func:`_routed` on device slabs: the slabs' ``(new_store,
+    discharge)`` lists.  A dense router runs split into row bands
+    (``route_grid_day_split``); a packed router, or a rank's
+    ``Gathered``, gathers its operands onto the first device once a day
+    (one "gather"), runs the global function and cuts the result back.
+    One slab runs the global function itself."""
+    routing = _in_one_process(routing)
+    if routing is None:
+        return stores, [torch.zeros_like(s) for s in stores]
+    if slabs.k == 1:
+        new, discharge = _routed(stores[0], rnfs[0], routing)
+        return [new], [discharge]
+    if isinstance(routing, GridRouting):
+        return route_grid_day_split(stores, rnfs, routing.split(slabs))
+    whole = slabs.gather([dict(store=s, rnf=r) for s, r in
+                          zip(stores, rnfs)], "gather")
+    new, discharge = _routed(whole["store"], whole["rnf"], routing)
+    return slabs.put(new), slabs.put(discharge)
+
+
+def _lateral_slabs(slabs: DeviceSlabs, soils, lateral):
+    """:func:`_lateral` on device slabs: lateral groundwater split into
+    row bands (``lateral_groundwater_step_split``), or for a rank's
+    ``Gathered`` over the operands gathered onto the first device."""
+    lateral = _in_one_process(lateral)
+    if lateral is None:
+        return soils
+    if slabs.k == 1:
+        return [_lateral(soils[0], lateral)]
+    if isinstance(lateral, LateralParams):
+        wa, _ = lateral_groundwater_step_split(
+            [s.wa for s in soils], [s.zwt for s in soils],
+            lateral.split(slabs))
+    else:
+        whole = slabs.gather([dict(wa=s.wa, zwt=s.zwt) for s in soils],
+                             "gather")
+        wa = slabs.put(_exchanged(whole["wa"], whole["zwt"], lateral))
+    return [s.replace(wa=w) for s, w in zip(soils, wa)]
 
 
 def _soil_thermal(state, soil_new, params, forcing, geom, soil_ice: bool,
@@ -347,12 +456,28 @@ def block_step(state: ModelState, acc: AnnualAccumulators,
                forcing_block: Forcing, params: SoilParams, geom: Geometry,
                dt: float, nisurf: int, use_kernel=None,
                zd09_every: int = 1, focus_idx: Optional[int] = None,
-               **extras):
+               devices: Optional[Sequence] = None, **extras):
     """Run the day step over a ``[days, n]`` forcing block and accumulate
     the annual sums.  Returns ``(state, acc)``, and with ``focus_idx`` a
     third element: the focus cell's rows (:func:`_focus_row`) stacked
     over the block's days, on the run's device.  ``extras`` are the other
-    keyword arguments of ``day_step`` (``Simulation.step_kwargs()``)."""
+    keyword arguments of ``day_step`` (``Simulation.step_kwargs()``).
+
+    With ``devices`` the block runs on device slabs
+    (:func:`slab_block_step`): the cells are cut once into one slab a
+    device, stay there for the block's days, and the state and sums are
+    gathered back onto the device of ``state`` at its end (with one
+    device and the inputs already there, nothing is copied)."""
+    if devices is not None:
+        slabs = DeviceSlabs.create(state.soil.h2osoi_liq.shape[0], devices)
+        home = state.soil.h2osoi_liq.device
+        out = slab_block_step(
+            slabs, slabs.put(state), slabs.put(acc),
+            slabs.put_block(forcing_block), slabs.put(params), geom, dt,
+            nisurf, use_kernel=use_kernel, zd09_every=zd09_every,
+            focus_idx=focus_idx, **extras)
+        return (slabs.gather(out[0], "state", home),
+                slabs.gather(out[1], "state", home)) + tuple(out[2:])
     rows = []
     for d in range(forcing_block.tas.shape[0]):
         f_day = forcing_block.map(lambda x: x[d])
@@ -366,8 +491,84 @@ def block_step(state: ModelState, acc: AnnualAccumulators,
                                    focus_idx))
     if focus_idx is None:
         return state, acc
-    return state, acc, {k: torch.stack([r[k] for r in rows])
-                        for k in rows[0]}
+    return state, acc, _stack_rows(rows)
+
+
+def _stack_rows(rows):
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def slab_day_step(slabs: DeviceSlabs, states: list, forcings: list,
+                  params: list, geom: Geometry, dt: float, nisurf: int,
+                  routing=None, lateral=None, soil_ice: bool = False,
+                  carbon: bool = False, focus_idx: Optional[int] = None,
+                  **cell) -> Tuple[list, list]:
+    """:func:`day_step` on device slabs, bitwise its result on the card:
+    ``states``, ``forcings`` and ``params`` hold one tree a slab of
+    ``slabs``, each on its device.  The cell-local parts of the day run
+    slab by slab on the slabs' devices (the hydrology day is one kernel
+    launch a slab), every slab's launches of a part issued before the
+    next part and none waiting on the host; the router and lateral
+    groundwater exchange only what they must (``_route_slabs``,
+    ``_lateral_slabs``).  ``focus_idx`` (of the slabs' cells) goes, at its
+    local index, to the slab that holds it.  ``cell`` are ``day_step``'s
+    other keywords (``devices`` is ignored: the slabs are the devices).
+    Returns the slabs' ``(states, diags)`` lists."""
+    cell.pop("devices", None)
+    mids = [_before_routing(st, f, p, geom, dt, nisurf, devices=None,
+                            soil_ice=soil_ice,
+                            focus_idx=_local_focus(slabs, focus_idx, i),
+                            **cell)
+            for i, (st, f, p) in enumerate(zip(states, forcings, params))]
+    rivers, discharges = _route_slabs(
+        slabs, [st.river_store for st in states],
+        [m.diags["rnf_day"] for m in mids], routing)
+    soils = _lateral_slabs(slabs, [m.soil for m in mids], lateral)
+    out = [_after_routing(st, m, river, soil,
+                          dict(m.diags, discharge=dis), p, geom, soil_ice,
+                          carbon)
+           for st, m, river, soil, dis, p in zip(states, mids, rivers, soils,
+                                                 discharges, params)]
+    return [o[0] for o in out], [o[1] for o in out]
+
+
+def _local_focus(slabs: DeviceSlabs, focus_idx, i):
+    """``focus_idx`` local to slab ``i``, or None where another slab
+    holds it."""
+    lo, hi = slabs.bounds[i]
+    if focus_idx is not None and lo <= focus_idx < hi:
+        return focus_idx - lo
+    return None
+
+
+def slab_block_step(slabs: DeviceSlabs, states: list, accs: list,
+                    blocks: list, params: list, geom: Geometry, dt: float,
+                    nisurf: int, use_kernel=None, zd09_every: int = 1,
+                    focus_idx: Optional[int] = None, **extras):
+    """:func:`block_step` on device slabs (:func:`slab_day_step` a day):
+    ``states``, ``accs``, ``blocks`` (``[days, n_slab]``) and ``params``
+    hold one tree a slab, each on its device, and so do the results.
+    Nothing is gathered: the state and the annual sums stay on the slabs'
+    devices from day to day.  Returns ``(states, accs)`` and with
+    ``focus_idx`` the focus cell's stacked rows, from its slab."""
+    rows = []
+    for d in range(blocks[0].tas.shape[0]):
+        f_days = [b.map(lambda x: x[d]) for b in blocks]
+        states, diags = slab_day_step(
+            slabs, states, f_days, params, geom, dt, nisurf,
+            use_kernel=use_kernel, zd09_every=zd09_every,
+            focus_idx=focus_idx, **extras)
+        accs = [_accumulate(a, st, f, dg, geom.dz_soil)
+                for a, st, f, dg in zip(accs, states, f_days, diags)]
+        if focus_idx is not None:
+            i = next(i for i in range(slabs.k)
+                     if _local_focus(slabs, focus_idx, i) is not None)
+            rows.append(_focus_row(states[i], f_days[i], diags[i],
+                                   geom.dz_soil,
+                                   _local_focus(slabs, focus_idx, i)))
+    if focus_idx is None:
+        return states, accs
+    return states, accs, _stack_rows(rows)
 
 
 def annual_means(acc: AnnualAccumulators, nisurf: int

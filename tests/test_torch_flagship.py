@@ -347,7 +347,7 @@ def test_run_imports_without_jax():
         "import hybrid9_tpu_torch.utils.profiling\n"
         "import importlib, pkgutil, hybrid9_tpu_torch.scripts as scripts\n"
         "names = [m.name for m in pkgutil.iter_modules(scripts.__path__)]\n"
-        "assert len(names) == 11, names\n"
+        "assert len(names) == 13, names\n"
         "for name in names:\n"
         "    importlib.import_module('hybrid9_tpu_torch.scripts.' + name)\n"
         "assert not any(m.split('.')[0] in ('jax', 'jaxlib', "

@@ -270,6 +270,39 @@ def test_a_sharded_day_issues_only_the_routers_gather(grid_params, threads,
     assert group.calls == ["all_gather"] * (2 * sum(want.values()))
 
 
+def test_a_rank_of_two_devices_cuts_its_slab_and_gathers(grid_params,
+                                                        threads):
+    """A rank that holds two devices cuts its slab into device slabs, and
+    its router keeps the ranks' gather: each day the rank's slabs are
+    gathered onto its first device (one "gather") and then over the ranks
+    (one "routing"); the two ranks' days are one process's day."""
+    grid, params = grid_params
+    n = params.n_cells
+    cfg = Config(**GRID_KW)
+    day = synthetic_forcing_day(n, 20, seed=1, lat=grid.cell_lat)
+    block = Forcing.from_numpy({k: v[None] for k, v in day.items()}, T64,
+                               "cpu")
+    one = Simulation(cfg, params, land_grid=grid)
+    one.advance(block, one.accumulators())
+    sims = [Simulation(cfg, params, land_grid=grid, sharding=dataclasses.
+                       replace(sh, devices=(CPU, CPU)))
+            for sh in slabs(n, 2)]
+    assert all(s.slabs.k == 2 for s in sims)
+    parallel.collectives.clear()
+    group = threads(2)
+    group.run(lambda r: sims[r].advance(sims[r].sharding.put_block(block),
+                                        sims[r].accumulators()))
+    assert dict(parallel.collectives) == {"gather": 2, "routing": 2}
+    assert group.calls == ["all_gather"] * 2
+    got = torch.cat([s.state.soil.h2osoi_liq for s in sims])
+    torch.testing.assert_close(got, one.state.soil.h2osoi_liq, rtol=1e-12,
+                               atol=1e-12)
+    store = torch.cat([s.state.river_store for s in sims])
+    torch.testing.assert_close(store, one.state.river_store, rtol=1e-12,
+                               atol=1e-12)
+    assert store.abs().sum() > 0.0
+
+
 def test_spinup_convergence_is_global(grid_params, threads):
     """Every rank takes the maximum drift and the means over every rank's
     land cells: the values one process computes (means at 1e-12), the

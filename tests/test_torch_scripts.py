@@ -32,7 +32,8 @@ from hybrid9_tpu_torch.data.soil import load_soil
 from hybrid9_tpu_torch.io import netcdf
 from hybrid9_tpu_torch.physics.hydrology import Geometry
 from hybrid9_tpu_torch.scripts import (da_soak, flagship_run, flagship_soak,
-                                       nisurf_study, pgf_scale_test,
+                                       halo_rehearsal, nisurf_study,
+                                       pgf_scale_test,
                                        router_compare, soil_scale_test,
                                        vaira_chain, zd09_cell_probe,
                                        zd09_debug, zd09_drift)
@@ -193,7 +194,8 @@ def test_profiling_matches_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("program", [
-    da_soak, flagship_run, flagship_soak, nisurf_study, pgf_scale_test,
+    da_soak, flagship_run, flagship_soak, halo_rehearsal, nisurf_study,
+    pgf_scale_test,
     router_compare, soil_scale_test, vaira_chain, zd09_cell_probe,
     zd09_debug, zd09_drift])
 def test_programs_need_the_card_unless_asked(program, tmp_path,
@@ -236,6 +238,17 @@ def test_router_compare_soak_is_clean(scheme):
     grid, params = load_soil(cfg, torch.float32, CPU)
     seconds, checksum = router_compare.time_scheme(cfg, grid, params, 2)
     assert seconds > 0.0 and np.isfinite(checksum)
+
+
+def test_halo_rehearsal_audit_holds(capsys):
+    """The rehearsal at 6 degrees (30 rows) in 8 uneven bands of the CPU:
+    the census of a routed day is the predicted one and both forms are
+    timed."""
+    assert halo_rehearsal.main(["--device", "cpu", "--resolution", "6",
+                                "--bands", "8", "--iters", "1"]) == 0
+    out = capsys.readouterr().out
+    assert '"halo": 112' in out and "audit OK at 30 rows" in out
+    assert "grid   routed day" in out and "packed routed day" in out
 
 
 def test_da_soak_health_checks_hold(capsys):
