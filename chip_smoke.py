@@ -146,7 +146,22 @@ non-zero:
    for byte one slab's; the flagship day at 1, 2 and 4 slabs and
    unsharded (``scripts.slab_timing``: ms, launches, host syncs a day,
    none added by the slabs); ``scripts.halo_rehearsal`` at 0.5 degrees in
-   8 bands, exit 0, its two routed days.
+   8 bands, exit 0, its two routed days;
+18. the closed loop and the carbon spin-up on device slabs of one process
+   (``slab_loop_path``), ``[cuda:0] * k`` at k = 4 and 3 against the
+   unsharded drivers: 10 days of ``run_ensemble_annual`` (8 members,
+   557,056 folded cells) and 5 cycles of ``assimilate`` (16 members,
+   1,114,112 cells) bitwise, k kernel launches a day and nothing
+   exchanged before the one join of the outputs; a 1-step per-cell
+   ``calibrate`` at 2 degrees within ``LOOP_FIT_RTOL`` of the unsharded
+   fit, its gradients finite; one rehearsal year of ``spinup_carbon`` on
+   ``Simulation(devices=[cuda:0] * k)`` at k = 4, 1 and 2 bitwise the
+   unsharded year's report and state, k launches a day; ``ensemble``,
+   ``assimilate`` and ``calibrate --config`` through ``cli.main``, with
+   ``--shard`` on 3 slabs of the card (as on a box of 3 cards) the files
+   the commands write without it; the ensemble day, the DA cycle and its
+   forecast (ms, launches, host syncs), the fit's Adam step and peak
+   memory and the rehearsal year's seconds at k = 1, 2, 4 and unsharded.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -2139,6 +2154,296 @@ def slab_path(tmp, flag, fblock, winter, dev, smi, kernel=True):
     return out
 
 
+#: Phase 18: the closed loop and the carbon spin-up on device slabs of one
+#: process (``[cuda:0] * k``), against the unsharded drivers.
+LOOP_SLAB_COUNTS = (4, 3)     # even and uneven cuts of 69,632 cells
+LOOP_TIMED = (1, 2, 4)        # slab counts timed beside the unsharded forms
+LOOP_ENS_DAYS = 10
+LOOP_DA_CYCLES = 5
+# The fit's check runs the plain day at 4 substeps, not 48: its forward,
+# recomputation and backward cost some 9 s a day of the card's host time
+# whatever the cell count, and the check runs it 1 + 4 + 3 times, and the
+# commands' legs twice more.  ``scripts.slab_timing --parts fit`` times the
+# step at the default 48.
+LOOP_FIT_NISURF = 4
+
+
+def _outputs(out: dict) -> list:
+    """A driver's outputs as a flat list of tensors (a state's leaves
+    included), in key order."""
+    return [x for k in sorted(out) for x in (
+        [out[k]] if isinstance(out[k], torch.Tensor)
+        else _state_leaves(out[k]))]
+
+
+class CensusAtJoin:
+    """While active, records the exchanges counted by
+    ``parallel.sharding.collectives`` when the first
+    ``DeviceSlabs.gather`` begins: everything a driver exchanged before it
+    joins its outputs.  The census starts at zero."""
+
+    def __enter__(self):
+        from hybrid9_tpu_torch.parallel import sharding as parallel
+        self.parallel, self.seen = parallel, []
+        self._gather = gather = parallel.DeviceSlabs.gather
+        seen = self.seen
+
+        def first(slabs, *args, **kw):
+            if not seen:
+                seen.append(dict(parallel.collectives))
+            return gather(slabs, *args, **kw)
+        parallel.DeviceSlabs.gather = first
+        parallel.collectives.clear()
+        return self
+
+    def __exit__(self, *exc):
+        self.parallel.DeviceSlabs.gather = self._gather
+
+
+def slab_loop_path(tmp, flag, dev, smi, kernel=True, **cfg_kw):
+    """Phase 18, the closed loop and the carbon spin-up on device slabs
+    of one process, as ``[dev] * k`` (``cfg_kw`` is for rehearsals on a
+    small grid; ``kernel=False``, no launch expected and nothing timed, for
+    rehearsals on the CPU).  At k in LOOP_SLAB_COUNTS against the
+    unsharded drivers on ``Config()`` at 0.5 degrees: LOOP_ENS_DAYS days of
+    ``run_ensemble_annual`` (8 members) and LOOP_DA_CYCLES cycles of
+    ``assimilate`` (16 members, observations made by the kernel day under
+    hksat log-multiplier 0.5), every output bitwise, k kernel launches a
+    day and nothing exchanged before the one join of the outputs; a
+    1-step per-cell ``calibrate`` of hksat at LOOP_GRID_DEG degrees over
+    FIT_DAYS days (LOOP_FIT_NISURF substeps) within LOOP_FIT_RTOL of the
+    unsharded fit, its gradients finite, no kernel launch.  One
+    rehearsal year of ``spinup_carbon`` on ``Simulation(devices=[dev] *
+    k)`` (``flag``'s configuration) at k = 4 and in LOOP_TIMED, each
+    bitwise the unsharded year's report and state, k launches a day, the
+    state never gathered.  ``ensemble``, ``assimilate`` and ``calibrate
+    --config`` through ``cli.main`` at LOOP_GRID_DEG degrees, each exit
+    0, and with ``--shard`` on ``[dev] * LOOP_SLAB_COUNTS[-1]`` (the
+    one-process sharding a box of that many cards gives) the file of the
+    command without ``--shard``: bitwise, the fit's within LOOP_FIT_RTOL.
+    Timed at k in LOOP_TIMED and unsharded
+    (``scripts.slab_timing``): the ensemble day, the DA forecast and
+    cycle in turns (ms, launches, host syncs a day: none added by the
+    slabs), the fit's step and peak memory, the rehearsal year's seconds.
+    Returns the phase's summary."""
+    from hybrid9_tpu_torch import assimilate as da
+    from hybrid9_tpu_torch import ensemble as ens
+    from hybrid9_tpu_torch.parallel import sharding as parallel
+    from hybrid9_tpu_torch.scripts import slab_timing as st
+
+    cuda = dev.type == "cuda"
+    prob = st.loop_problem(Config(output_path=tmp, **cfg_kw), dev,
+                           LOOP_ENS_DAYS)
+    n = prob.params.n_cells
+    out = dict(cells=n)
+
+    def against_unsharded(label, run, days):
+        """``run(devices)`` unsharded and at k in LOOP_SLAB_COUNTS: every
+        output bitwise, ``days`` launches a slab, the exchanges before
+        and at the join."""
+        want = _outputs(run(None))
+        got = {}
+        for k in LOOP_SLAB_COUNTS:
+            day_kernel.launches = 0
+            with CensusAtJoin() as census:
+                res = run([dev] * k)
+                if cuda:
+                    torch.cuda.synchronize()
+            launches = day_kernel.launches
+            joined = dict(parallel.collectives)
+            if kernel and launches != days * k:
+                raise RuntimeError(f"{label} on {k} slabs: {launches} kernel "
+                                   f"launches in {days} days")
+            if census.seen != [{}] or joined != {"result": 1}:
+                raise RuntimeError(f"{label} on {k} slabs: exchanges "
+                                   f"{census.seen} before the join, "
+                                   f"{joined} in all")
+            _leaves_equal(f"{label} on {k} slabs", _outputs(res), want)
+            got[k] = dict(launches=launches, census=joined)
+        print(f"slab loop: {label} on {list(got)} slabs of {dev}: bitwise "
+              f"the unsharded run, " + json.dumps(got))
+        return got
+
+    def ensemble(devices):
+        return ens.run_ensemble_annual(prob.theta, prob.params, prob.state0,
+                                       prob.forcing, prob.geom,
+                                       devices=devices, **prob.step)
+    out["ensemble"] = against_unsharded(
+        f"ensemble, {ENSEMBLE_MEMBERS} members x {n} cells x "
+        f"{LOOP_ENS_DAYS} days", ensemble, LOOP_ENS_DAYS)
+
+    def cycles(x):
+        return x[:LOOP_DA_CYCLES]
+
+    def assimilate(devices):
+        return da.assimilate(prob.params, prob.state0,
+                             prob.forcing.map(cycles),
+                             cycles(prob.obs), prob.geom,
+                             n_members=DA_MEMBERS,
+                             obs_mask=cycles(prob.mask), theta_spread=0.3,
+                             seed=0, cfg=st.ENKF, devices=devices,
+                             **prob.step)
+    out["assimilate"] = against_unsharded(
+        f"assimilate, {DA_MEMBERS} members x {n} cells x {LOOP_DA_CYCLES} "
+        f"cycles", assimilate, LOOP_DA_CYCLES)
+
+    # The fit: unsharded, then at k in LOOP_SLAB_COUNTS.
+    fit_kw = dict(cfg_kw, resolution_deg=LOOP_GRID_DEG,
+                  nisurf=LOOP_FIT_NISURF)
+    fprob = st.fit_problem(Config(**fit_kw), dev, FIT_DAYS)
+    fits = {0: st.fit_step(fprob, None)}
+    for k in LOOP_SLAB_COUNTS:
+        fits[k] = st.fit_step(fprob, [dev] * k)
+    want = fits[0]["result"]
+    hist = want.loss_history
+    if not (bool(torch.isfinite(hist).all())
+            and float(hist[-1]) < float(hist[0])):
+        raise RuntimeError(f"slab loop fit: loss {hist.tolist()}")
+    fit_err = 0.0
+    for k, got in fits.items():
+        if not got["grads_finite"] or got["launches"]:
+            raise RuntimeError(f"fit on {k} slabs: gradients finite "
+                               f"{got['grads_finite']}, {got['launches']} "
+                               f"kernel launches")
+        res = got["result"]
+        for label, x, y in (("loss history", res.loss_history, hist),
+                            ("theta", res.theta["hksat"],
+                             want.theta["hksat"])):
+            err = float(((x.double() - y.double()).abs()
+                         / y.double().abs().clamp(min=1e-30)).max())
+            fit_err = max(fit_err, err)
+            if x.shape != y.shape or err > LOOP_FIT_RTOL:
+                raise RuntimeError(f"fit on {k} slabs: {label} off the "
+                                   f"unsharded fit by {err} relative")
+    out["fit"] = dict(cells=fprob.params.n_cells, days=FIT_DAYS,
+                      nisurf=LOOP_FIT_NISURF, max_rel_err=fit_err,
+                      loss=hist.tolist(), by_slabs={
+                          k: dict(step_s=v["step_s"],
+                                  peak_bytes=v["peak_bytes"])
+                          for k, v in fits.items()})
+    print(f"slab loop: 1-step per-cell calibrate of hksat at {LOOP_GRID_DEG} "
+          f"degrees ({fprob.params.n_cells} cells, {FIT_DAYS} days, nisurf "
+          f"{LOOP_FIT_NISURF}) on {list(LOOP_SLAB_COUNTS)} slabs within "
+          f"{fit_err:.3e} relative of the unsharded fit (limit "
+          f"{LOOP_FIT_RTOL}), finite gradients, no kernel launch; step "
+          f"seconds and peak bytes by slabs (0: unsharded): "
+          + json.dumps(out["fit"]["by_slabs"]) + f" ({smi})")
+
+    # One rehearsal year of the spin-up, unsharded and on slabs.
+    sim0 = flag.sim
+    ndays = calendar.days_in_year(sim0.cfg.start_year)
+    spins = {}
+    for k in (0,) + tuple(sorted({LOOP_SLAB_COUNTS[0], *LOOP_TIMED},
+                                 reverse=True)):
+        parallel.collectives.clear()
+        got = st.rehearsal_year(sim0.cfg, sim0.params, flag.land_grid,
+                                None if k == 0 else [dev] * k)
+        census = dict(parallel.collectives)
+        if kernel and got["launches"] != ndays * max(k, 1):
+            raise RuntimeError(f"spin-up on {k} slabs: {got['launches']} "
+                               f"launches in a rehearsal year")
+        if k and (census.get("result") != 2 or "state" in census):
+            raise RuntimeError(f"spin-up on {k} slabs: exchanges {census}")
+        got["leaves"] = _state_leaves(got.pop("sim").state)
+        if k:
+            if got["report"] != spins[0]["report"]:
+                raise RuntimeError(f"spin-up on {k} slabs: report "
+                                   f"{got['report']}, unsharded "
+                                   f"{spins[0]['report']}")
+            _leaves_equal(f"spin-up on {k} slabs", got["leaves"],
+                          spins[0]["leaves"])
+        spins[k] = got
+    out["spinup"] = {k: dict(seconds=v["seconds"], launches=v["launches"])
+                     for k, v in spins.items()}
+    print(f"slab loop: one rehearsal year of spinup_carbon on "
+          f"Simulation(devices=[{dev}] * k) bitwise the unsharded year "
+          f"(report {json.dumps(spins[0]['report'])}); seconds and launches "
+          f"by slabs (0: unsharded): " + json.dumps(out["spinup"])
+          + f" ({smi})")
+
+    # The commands in one process, without --shard and with --shard as a
+    # box of LOOP_SLAB_COUNTS[-1] cards would run them: cli._sharding's
+    # one-process sharding holds [dev] * k, so the twin observations and
+    # the drivers run on k slabs of the card.
+    path = os.path.join(tmp, "slab_loop.json")
+    with open(path, "w") as f:
+        f.write(Config(output_path=tmp, **fit_kw).to_json())
+    device_argv = [] if cuda else ["--device", str(dev)]
+    k = LOOP_SLAB_COUNTS[-1]
+    sharding = cli._sharding
+
+    def k_cards(shard, n, device):
+        got = sharding(shard, n, device)
+        return got and dataclasses.replace(got, devices=(dev,) * k)
+    walls = {}
+    for name, argv, suffix in (
+            ("ensemble", ["--members", str(ENSEMBLE_MEMBERS), "--days", "3"],
+             ".nc"),
+            ("assimilate", ["--members", str(DA_MEMBERS), "--days", "2",
+                            "--obs-twin", "0.5"], ".npz"),
+            ("calibrate", ["--per-cell", "--obs-twin", "0.4", "--fields",
+                           "hksat", "--days", "1", "--steps", "1"], ".npz")):
+        outs = {}
+        for shard in (False, True):
+            written = os.path.join(tmp, f"cli_{name}_{shard}{suffix}")
+            flags = ["--shard"] if shard else []
+            cli._sharding = k_cards if shard else sharding
+            parallel.collectives.clear()
+            try:
+                walls[f"{name}{' --shard' if shard else ''}"] = _run_cli(
+                    [name, "--config", path, *flags, *argv, *device_argv,
+                     "--out", written], f"{name} {' '.join(flags)}")
+            finally:
+                cli._sharding = sharding
+            joins = parallel.collectives.get("result", 0)
+            if joins != (1 if name == "ensemble" else 2) * shard:
+                raise RuntimeError(f"{name} {flags}: {joins} joins of slab "
+                                   f"outputs")
+            outs[shard] = written
+        if name == "ensemble":
+            _same_netcdf(f"ensemble --shard on {k} slabs", outs[True],
+                         outs[False])
+            continue
+        limit = 0.0 if name == "assimilate" else LOOP_FIT_RTOL
+        with np.load(outs[False]) as want, np.load(outs[True]) as got:
+            for key in want.files:
+                x, y = got[key], want[key]
+                err = float(np.max(np.abs(x - y) / np.maximum(
+                    np.abs(y), 1e-30))) if x.shape == y.shape else np.inf
+                if err > limit:
+                    raise RuntimeError(f"{name} --shard on {k} slabs: {key} "
+                                       f"off the command without --shard "
+                                       f"by {err} relative")
+    out["cli_shard_wall_s"] = walls
+    print(f"slab loop: ensemble, assimilate and calibrate --config in one "
+          f"process at {LOOP_GRID_DEG} degrees, nisurf {LOOP_FIT_NISURF}, "
+          f"exit 0; with --shard on {k} slabs of {dev} (as on a box of {k} "
+          f"cards) the twin observations and the drivers joined on the "
+          f"slabs, the files bitwise the command's without --shard (the "
+          f"fit's within {LOOP_FIT_RTOL}); wall seconds "
+          + json.dumps(walls))
+
+    # The closed loop's days at k in LOOP_TIMED and unsharded, in turns.
+    forms = [None] + [[dev] * k for k in LOOP_TIMED]
+    if not kernel:
+        for devices in forms:
+            for name, run in st.loop_days(prob, devices).items():
+                _all_finite(f"{name} on {devices}", [("ET", run())])
+        return out
+    timed = st.loop_costs(prob, forms)
+    for name, got in timed.items():
+        for c in got[1:]:
+            if c["host_syncs_a_day"] > got[0]["host_syncs_a_day"]:
+                raise RuntimeError(f"{name} on {c['slabs']} slabs: "
+                                   f"{c['host_syncs_a_day']} host syncs a "
+                                   f"day, unsharded "
+                                   f"{got[0]['host_syncs_a_day']}")
+        print(f"timing: {name} by slabs (0: unsharded): "
+              + json.dumps(got) + f" ({smi})")
+    out["timed"] = timed
+    return out
+
+
 def main() -> None:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -2546,6 +2851,12 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         slab = slab_path(tmp, flag, fblock, winter, dev, smi)
 
+    # 18. The closed loop and the spin-up on device slabs of one process.
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        slab_loop = slab_loop_path(tmp, flag, dev, smi)
+        print(f"phase 18: {time.perf_counter() - t0:.1f} s ({smi})")
+
     common = dict(route="cuda",
                   source="hybrid9_tpu_torch/csrc/day_kernel.cu",
                   bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
@@ -2615,6 +2926,16 @@ def main() -> None:
                  day_launches={f"slabs_{c['slabs']}": c[
                      "day_kernel_launches_a_day"]
                      for c in slab["day_costs"]},
+                 bitwise_unsharded=True),
+             slab_loop_path=dict(
+                 ensemble_launches={f"slabs_{k}": v["launches"] for k, v in
+                                    slab_loop["ensemble"].items()},
+                 assimilate_launches={f"slabs_{k}": v["launches"] for k, v in
+                                      slab_loop["assimilate"].items()},
+                 spinup_launches={f"slabs_{k}": v["launches"] for k, v in
+                                  slab_loop["spinup"].items()},
+                 ensemble_days=LOOP_ENS_DAYS, da_cycles=LOOP_DA_CYCLES,
+                 fit_max_rel_err=slab_loop["fit"]["max_rel_err"],
                  bitwise_unsharded=True)),
         dict(common, name="hydrology_day_sharded",
              replaces="hybrid9_tpu/physics/pallas_day.py:220",

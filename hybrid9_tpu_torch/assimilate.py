@@ -30,15 +30,17 @@ use of observations was a visual model-vs-obs comparison at one site
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from .calibrate import apply_multipliers
 from .ensemble import fold
+from .parallel.sharding import DeviceSlabs, slab_devices
 from .physics import bounds
 from .physics import constants as c
 from .physics.hydrology import Geometry
+from .physics.layers import layer_tensor
 from .state import Forcing, ModelState, SoilParams
 from .step import day_step
 
@@ -119,7 +121,9 @@ def _enkf_cycle(state_m: ModelState, theta_m: torch.Tensor,
     """Forecast one day at ensemble width, then analyse.
 
     ``state_m``: the cell-major folded ``[n*m]`` model state; ``theta_m``:
-    ``[m, n]`` per-cell hksat log-multipliers; ``params_tiled``: the base
+    ``[m, n]`` per-cell hksat log-multipliers (best laid out as
+    :func:`first_draw` lays them out, which the analysis keeps);
+    ``params_tiled``: the base
     params folded to ``[n*m]`` (the multipliers are applied here, so the
     analysed theta takes effect on the next forecast); ``f_day``: ``[n]``
     forcing shared by the members.  Returns ``(state_m', theta_m',
@@ -152,7 +156,7 @@ def _enkf_cycle(state_m: ModelState, theta_m: torch.Tensor,
     # O13 Eqn 7.94): it is a carry the next substep's beta-stress reads
     # (HYDROLOGY.f90:271).  The prior zwt is kept, as the JAX package
     # keeps it (ROADMAP §C).
-    dz = torch.as_tensor(geom.dz_soil, dtype=h.dtype, device=h.device)
+    dz = layer_tensor(geom.dz_soil, h.dtype, h.device)
     s_node = bounds.clip((h / dz[None, :]) / p.theta_s, 0.01, 1.0)
     smp = bounds.maximum(p.psi_s * s_node ** (-p.bsw), c.SMPMIN)
     state_m = state_m.replace(soil=state_m.soil.replace(
@@ -163,9 +167,16 @@ def _enkf_cycle(state_m: ModelState, theta_m: torch.Tensor,
 def first_draw(generator: torch.Generator, m: int, n: int,
                theta_spread: float, dtype: torch.dtype) -> torch.Tensor:
     """The ``[m, n]`` prior hksat log-multipliers: ``theta_spread`` times
-    standard normals from ``generator``, on its device."""
-    return theta_spread * torch.randn((m, n), generator=generator,
+    standard normals from ``generator``, on its device, drawn member by
+    member and laid out cell-major, the member axis fastest (the ``[n,
+    m]`` tensor's transpose), as the fold lays out the ensemble.  The
+    filter keeps that layout, so its sums over the members run along
+    memory, one cell after another, in an order that does not depend on
+    how many cells a tensor holds (a sum across the cells' axis does on
+    the CPU): a slab of cells sums its members as the whole axis does."""
+    draw = theta_spread * torch.randn((m, n), generator=generator,
                                       dtype=dtype, device=generator.device)
+    return draw.T.contiguous().T
 
 
 @torch.no_grad()
@@ -178,7 +189,8 @@ def assimilate(params: SoilParams, state0: ModelState,
                vegetation: bool = True, use_kernel=None,
                zd09_every: int = 1,
                cfg: EnKFConfig = EnKFConfig(),
-               sharding=None) -> Dict[str, torch.Tensor]:
+               sharding=None,
+               devices: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
     """Sequential EnSRF over a daily-ET observation record.
 
     ``forcing_days``: ``[days, n]`` Forcing; ``obs_et``: ``[days, n]``
@@ -195,6 +207,14 @@ def assimilate(params: SoilParams, state0: ModelState,
     multipliers are bitwise those of one process; the forecast and the
     cell-local analysis need no exchange.
 
+    With ``devices`` (a device may repeat), or a ``sharding`` whose rank
+    holds several devices, the cells are cut once into device slabs
+    (``parallel.sharding.DeviceSlabs``), each folded on its own device
+    with its cut of the prior: each cycle is one forecast and one
+    analysis a slab (on the card one kernel launch a slab), nothing
+    crosses the slabs, and the outputs are joined on the first device
+    once, after the last cycle.
+
     Returns the posterior ``theta_mean``/``theta_std`` ``[n]``, the final
     folded ensemble state and the ``[days, n]`` ensemble-mean predicted ET
     (for innovation diagnostics).
@@ -205,6 +225,7 @@ def assimilate(params: SoilParams, state0: ModelState,
         obs_et = sharding.put_block(obs_et)
         if obs_mask is not None:
             obs_mask = sharding.put_block(obs_mask)
+    devices = slab_devices(sharding, devices)
     m = n_members
     lai = state0.veg.lai
     n = lai.shape[0]
@@ -212,22 +233,38 @@ def assimilate(params: SoilParams, state0: ModelState,
     if obs_mask is None:
         obs_mask = torch.ones((ndays, n), dtype=torch.bool, device=lai.device)
     generator = torch.Generator(device=lai.device).manual_seed(seed)
+    # The prior, cell-major ([n, m]): cut on its cell axis, each slab
+    # keeps the members fastest (first_draw).
     if sharding is None:
-        theta_m = first_draw(generator, m, n, theta_spread, lai.dtype)
+        prior = first_draw(generator, m, n, theta_spread, lai.dtype).T
     else:
-        theta_m = sharding.put_block(first_draw(
-            generator, m, sharding.n, theta_spread, lai.dtype))
-    params_tiled = params.map(lambda x: fold(x, m))
-    state_m = state0.map(lambda x: fold(x, m))
+        prior = sharding.put(first_draw(generator, m, sharding.n,
+                                        theta_spread, lai.dtype).T)
+    slabs = None
+    parts = [(params, state0, forcing_days, obs_et, obs_mask, prior)]
+    if devices is not None:
+        slabs = DeviceSlabs.create(n, devices)
+        parts = list(zip(slabs.put(params), slabs.put(state0),
+                         slabs.put_block(forcing_days),
+                         slabs.put_block(obs_et), slabs.put_block(obs_mask),
+                         slabs.put(prior)))
+    params_tiled = [p.map(lambda x: fold(x, m)) for p, *_ in parts]
+    states = [s.map(lambda x: fold(x, m)) for _, s, *_ in parts]
+    thetas = [t.T for *_, t in parts]
     dt = c.SDAY / nisurf
-    y_means = []
+    y_means = [[] for _ in parts]
     for d in range(ndays):
-        state_m, theta_m, y_pred = _enkf_cycle(
-            state_m, theta_m, params_tiled, forcing_days.map(lambda x: x[d]),
-            obs_et[d], obs_mask[d], geom, dt, m, nisurf, vegetation,
-            use_kernel, zd09_every, cfg)
-        y_means.append(torch.mean(y_pred, dim=0))
-    return dict(theta_mean=torch.mean(theta_m, dim=0),
-                theta_std=torch.std(theta_m, dim=0, correction=0),
-                state=state_m,
-                y_pred_mean=torch.stack(y_means))
+        for i, (_, _, f, obs, mask, _) in enumerate(parts):
+            states[i], thetas[i], y_pred = _enkf_cycle(
+                states[i], thetas[i], params_tiled[i],
+                f.map(lambda x: x[d]), obs[d], mask[d], geom, dt, m, nisurf,
+                vegetation, use_kernel, zd09_every, cfg)
+            y_means[i].append(torch.mean(y_pred, dim=0))
+    out = [dict(theta_mean=torch.mean(t, dim=0),
+                theta_std=torch.std(t, dim=0, correction=0),
+                state=s, y_pred_mean=torch.stack(y, dim=1))
+           for t, s, y in zip(thetas, states, y_means)]
+    # The folded states join in cell order: slab by slab, cell-major.
+    out = out[0] if slabs is None else slabs.gather(out, "result")
+    out["y_pred_mean"] = out["y_pred_mean"].T.contiguous()
+    return out

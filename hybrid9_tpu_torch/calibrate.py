@@ -26,6 +26,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .parallel.sharding import DeviceSlabs, slab_devices
 from .physics import bounds
 from .physics import constants as c
 from .physics.hydrology import Geometry
@@ -94,31 +95,51 @@ def simulate_daily_et(theta: Dict[str, torch.Tensor],
                       forcing_days: Forcing,
                       geom: Geometry,
                       nisurf: int = c.NISURF_DEFAULT,
-                      vegetation: bool = True) -> torch.Tensor:
+                      vegetation: bool = True,
+                      devices: Optional[Sequence] = None) -> torch.Tensor:
     """Forward model: daily ET ``[days, n]`` (mm/day) under multipliers.
 
     ``forcing_days`` holds stacked ``[days, n]`` tensors.  Every day is
     the plain (differentiable) day step, recomputed in the backward pass
     rather than kept (``torch.utils.checkpoint``), so reverse mode over a
-    year holds one day's tape.
+    year holds one day's tape.  With ``devices`` (a device may repeat)
+    the cells are cut into device slabs (``parallel.sharding.DeviceSlabs``;
+    the cut of a per-cell theta is differentiable), each slab runs its
+    days on its device, and the ET is joined on the first device.
     """
-    p = apply_multipliers(params, theta)
+    if devices is None:
+        return _daily_et([theta], [params], [state0], [forcing_days], geom,
+                         nisurf, vegetation)[0]
+    slabs = DeviceSlabs.create(params.n_cells, devices)
+    evap = _daily_et(slabs.put(theta), slabs.put(params), slabs.put(state0),
+                     slabs.put_block(forcing_days), geom, nisurf, vegetation)
+    return slabs.gather(evap, "result", axis=1)
+
+
+def _daily_et(thetas, params, states, forcings, geom, nisurf, vegetation):
+    """:func:`simulate_daily_et` over slabs (a list each, one tree a slab
+    on its device; the whole problem is one slab): day by day, each
+    slab's checkpointed plain day.  Returns each slab's ``[days, n_slab]``
+    ET."""
+    ps = [apply_multipliers(p, t) for p, t in zip(params, thetas)]
     dt = c.SDAY / nisurf
-    state = state0
-    evap = []
-    for d in range(forcing_days.tas.shape[0]):
-        f_day = forcing_days.map(lambda x: x[d])
-        state, et = checkpoint(_day_et, state, f_day, p, geom, dt, nisurf,
-                               vegetation, use_reentrant=False,
-                               preserve_rng_state=False)
-        evap.append(et)
-    return torch.stack(evap)
+    states = list(states)
+    evap = [[] for _ in ps]
+    for d in range(forcings[0].tas.shape[0]):
+        for i, (f, p) in enumerate(zip(forcings, ps)):
+            states[i], et = checkpoint(
+                _day_et, states[i], f.map(lambda x: x[d]), p, geom, dt,
+                nisurf, vegetation, use_reentrant=False,
+                preserve_rng_state=False)
+            evap[i].append(et)
+    return [torch.stack(e) for e in evap]
 
 
 def et_loss(theta, params, state0, forcing_days, geom, obs_et,
             nisurf: int = c.NISURF_DEFAULT,
             obs_mask: Optional[torch.Tensor] = None,
-            sharding=None) -> torch.Tensor:
+            sharding=None, devices: Optional[Sequence] = None
+            ) -> torch.Tensor:
     """Mean-squared error of simulated vs observed daily ET (mm/day).
 
     ``obs_et``: ``[days, n]`` observations (the analog of the LCLIM
@@ -129,19 +150,64 @@ def et_loss(theta, params, state0, forcing_days, geom, obs_et,
     own cells' sum over the denominator of every rank's cells, so the
     ranks' losses add up to the global loss.  The denominator is summed
     across the ranks outside the autograd graph.
+
+    With ``devices`` (a device may repeat), or a ``sharding`` whose rank
+    holds several devices, the cells are cut into device slabs (else the
+    cells are one slab): each slab's squared errors are summed on its
+    device, and the loss is built on the first device from those partial
+    sums, added in slab order (so it is the unsharded loss up to the
+    order of its sum).
     """
-    sim = simulate_daily_et(theta, params, state0, forcing_days, geom,
-                            nisurf)
-    err2 = (sim - obs_et) ** 2
-    if obs_mask is not None:
-        w = obs_mask.to(err2.dtype)
-        den = torch.sum(w)
+    slabs = DeviceSlabs.create(params.n_cells, slab_devices(
+        sharding, devices) or [params.hksat.device])
+    return _slab_loss(slabs, slabs.put(theta), _SlabProblem.cut(
+        slabs, params, state0, forcing_days, obs_et, obs_mask), geom,
+        nisurf, sharding)
+
+
+class _SlabProblem(NamedTuple):
+    """A fit's inputs cut over device slabs, one tree a slab: the
+    parameters, initial states, ``[days, n_slab]`` forcing, observations
+    and masks (None without a mask)."""
+
+    params: list
+    states: list
+    forcings: list
+    obs: list
+    masks: Optional[list]
+
+    @classmethod
+    def cut(cls, slabs, params, state0, forcing_days, obs_et, obs_mask):
+        return cls(slabs.put(params), slabs.put(state0),
+                   slabs.put_block(forcing_days), slabs.put_block(obs_et),
+                   None if obs_mask is None else slabs.put_block(obs_mask))
+
+
+def _slab_loss(slabs, thetas, problem: _SlabProblem, geom, nisurf,
+               sharding=None) -> torch.Tensor:
+    """:func:`et_loss` over ``slabs``, ``thetas`` one dict a slab: each
+    slab's sum of (masked) squared errors on its device, the sums added on
+    the first device in slab order; the mask's denominator summed over
+    the slabs, and under ``sharding`` over the ranks, outside the graph."""
+    evap = _daily_et(thetas, problem.params, problem.states,
+                     problem.forcings, geom, nisurf, True)
+    masks = problem.masks or [None] * slabs.k
+    num = den = None
+    for sim, obs, mask in zip(evap, problem.obs, masks):
+        err2 = (sim - obs) ** 2
+        if mask is not None:
+            w = mask.to(err2.dtype)
+            err2 = err2 * w
+            part = torch.sum(w).to(slabs.device)
+            den = part if den is None else den + part
+        part = torch.sum(err2).to(slabs.device)
+        num = part if num is None else num + part
+    if den is not None:
         if sharding is not None:
             den = sharding.all_reduce_sum(den, "calibrate")
-        return torch.sum(err2 * w) / bounds.maximum(den, 1.0)
-    if sharding is not None:
-        return torch.sum(err2) / (err2.shape[0] * sharding.n)
-    return torch.mean(err2)
+        return num / bounds.maximum(den, 1.0)
+    cells = sharding.n if sharding is not None else slabs.n
+    return num / (evap[0].shape[0] * cells)
 
 
 class CalibrationResult(NamedTuple):
@@ -160,7 +226,8 @@ def calibrate(params: SoilParams,
               steps: int = 50,
               learning_rate: float = 0.1,
               obs_mask: Optional[torch.Tensor] = None,
-              sharding=None) -> CalibrationResult:
+              sharding=None,
+              devices: Optional[Sequence] = None) -> CalibrationResult:
     """Fit soil-parameter multipliers to observed daily ET with Adam.
 
     Each step takes the loss and its gradient at the current multipliers
@@ -174,6 +241,15 @@ def calibrate(params: SoilParams,
     rank's share (:func:`et_loss`), a scalar theta's gradient is summed
     across the ranks after the backward pass, and the loss history is
     summed once at the end, so every rank reports the global loss.
+
+    With ``devices`` (a device may repeat), or a ``sharding`` whose rank
+    holds several devices, the (rank's) cells are cut once into device
+    slabs: a per-cell theta is one leaf a slab on its device, a scalar
+    theta one leaf on the first device that each slab reads through its
+    own copy (autograd sums the copies' gradients into the leaf), each
+    slab's days run on its device, and the loss is built on the first
+    device from the slabs' partial sums (:func:`et_loss`).  The fitted
+    theta is joined on the first device at the end.
     """
     if sharding is not None:
         params, state0 = sharding.put(params), sharding.put(state0)
@@ -182,15 +258,35 @@ def calibrate(params: SoilParams,
         if obs_mask is not None:
             obs_mask = sharding.put_block(obs_mask)
     ref = params.hksat
-    theta = {k: v.requires_grad_(True) for k, v in spec.init_theta(
-        params.n_cells, ref.dtype, ref.device).items()}
-    opt = torch.optim.Adam(list(theta.values()), lr=learning_rate)
+    slabs = DeviceSlabs.create(params.n_cells, slab_devices(
+        sharding, devices) or [ref.device])
+    problem = _SlabProblem.cut(slabs, params, state0, forcing_days, obs_et,
+                               obs_mask)
+
+    def leaf(n_cells, device):
+        return {k: v.requires_grad_(True) for k, v in spec.init_theta(
+            n_cells, ref.dtype, device).items()}
+    if spec.per_cell:
+        leaves = [leaf(p.n_cells, d)
+                  for p, d in zip(problem.params, slabs.devices)]
+    else:
+        leaves = [leaf(params.n_cells, ref.device)]
+
+    def loss_at(parts):
+        """The loss at ``parts``: one theta dict a slab (per-cell), or the
+        one dict of a scalar theta, which each slab reads through its own
+        copy."""
+        if not spec.per_cell:
+            parts = slabs.put(parts[0])
+        return _slab_loss(slabs, parts, problem, geom, nisurf, sharding)
+
+    opt = torch.optim.Adam([t for p in leaves for t in p.values()],
+                           lr=learning_rate)
     losses = []
-    scalars = [t for t in theta.values() if t.dim() == 0]
+    scalars = [t for t in leaves[0].values() if t.dim() == 0]
     for _ in range(steps):
         opt.zero_grad()
-        loss = et_loss(theta, params, state0, forcing_days, geom, obs_et,
-                       nisurf, obs_mask, sharding)
+        loss = loss_at(leaves)
         loss.backward()
         if sharding is not None and scalars:
             grads = sharding.all_reduce_sum(
@@ -199,13 +295,13 @@ def calibrate(params: SoilParams,
                 t.grad = g
         opt.step()
         losses.append(loss.detach())
-    fitted = {k: v.detach() for k, v in theta.items()}
+    fitted = [{k: v.detach() for k, v in p.items()} for p in leaves]
     with torch.no_grad():
-        losses.append(et_loss(fitted, params, state0, forcing_days, geom,
-                              obs_et, nisurf, obs_mask, sharding))
+        losses.append(loss_at(fitted))
     history = torch.stack(losses)
     if sharding is not None:
         history = sharding.all_reduce_sum(history, "calibrate")
+    fitted = slabs.gather(fitted, "result") if len(fitted) > 1 else fitted[0]
     return CalibrationResult(theta=fitted,
                              params=apply_multipliers(params, fitted),
                              loss_history=history)

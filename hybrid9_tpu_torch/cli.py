@@ -26,10 +26,13 @@ Multi-process runs launch the same command in every process with
 --shard ...``, or ``WORLD_SIZE``/``RANK``/``MASTER_ADDR``/``MASTER_PORT``
 set by hand): each rank owns one slab of the packed cell axis, reads
 only its own forcing, writes a part file that rank 0 stitches and saves
-its own checkpoint (parallel/).  ``run --shard`` in one process takes
+its own checkpoint (parallel/).  ``--shard`` in one process takes
 every visible card: the cells are cut once into a slab a card, which
-each card keeps from day to day, and the dense routers and lateral
-groundwater run split into row bands (``parallel.sharding.DeviceSlabs``).
+each card keeps from day to day (``parallel.sharding.DeviceSlabs``).
+``run`` splits the dense routers and lateral groundwater into row bands,
+and runs ``--spinup-carbon`` on the slabs too; ``ensemble``,
+``assimilate`` and ``calibrate --config`` fold and fit each slab on its
+card and join the outputs once, at the end.
 """
 
 from __future__ import annotations
@@ -387,6 +390,7 @@ def cmd_calibrate_global(args: argparse.Namespace) -> int:
     import numpy as np
 
     from .calibrate import CalibrationSpec, calibrate, simulate_daily_et
+    from .parallel.sharding import slab_devices
 
     cfg, device, dtype, grid, params, state0, geom = _global_problem(args)
     ndays = args.days
@@ -409,7 +413,8 @@ def cmd_calibrate_global(args: argparse.Namespace) -> int:
                       for f in fields}
         with torch.no_grad():
             obs = simulate_daily_et(true_theta, params, state0, forcing,
-                                    geom, cfg.nisurf)
+                                    geom, cfg.nisurf,
+                                    devices=slab_devices(sharding))
         log.info("twin experiment: obs generated at log-multiplier "
                  "%.3f on %s", args.obs_twin, ",".join(fields))
     elif obs is None:
@@ -611,6 +616,7 @@ def cmd_assimilate(args: argparse.Namespace) -> int:
 
     from .assimilate import EnKFConfig, assimilate
     from .calibrate import simulate_daily_et
+    from .parallel.sharding import slab_devices
 
     cfg, device, dtype, grid, params, state0, geom = _global_problem(args)
     ndays = args.days
@@ -631,7 +637,8 @@ def cmd_assimilate(args: argparse.Namespace) -> int:
         with torch.no_grad():
             obs = simulate_daily_et(true_theta, params, state0, forcing,
                                     geom, cfg.nisurf,
-                                    vegetation=cfg.vegetation)
+                                    vegetation=cfg.vegetation,
+                                    devices=slab_devices(sharding))
         log.info(TWIN_LOG, args.obs_twin, time.perf_counter() - t0)
     elif obs is None:
         raise SystemExit("assimilate needs --obs-npz or --obs-twin")
@@ -772,7 +779,8 @@ def main(argv=None) -> int:
                          "per field")
     pc.add_argument("--shard", action="store_true",
                     help="(global mode) cell-sharded fit over the "
-                         "processes of a multi-process launch")
+                         "processes of a multi-process launch; in one "
+                         "process, over every visible card")
     pc.add_argument("--days", type=int, default=60,
                     help="(global mode) days of forcing in the fit "
                          "window")
@@ -818,7 +826,8 @@ def main(argv=None) -> int:
                          "year)")
     pe.add_argument("--shard", action="store_true",
                     help="cell-sharded ensemble over the processes of a "
-                         "multi-process launch")
+                         "multi-process launch; in one process, over "
+                         "every visible card")
     pe.add_argument("--out", default=None,
                     help="spread-diagnostics NetCDF (default "
                          "ensemble.nc)")
@@ -852,7 +861,8 @@ def main(argv=None) -> int:
                     help="relaxation-to-prior-spread coefficient")
     pa.add_argument("--shard", action="store_true",
                     help="cell-sharded filter over the processes of a "
-                         "multi-process launch")
+                         "multi-process launch; in one process, over "
+                         "every visible card")
     pa.add_argument("--seed", type=int, default=0)
     pa.add_argument("--out", default=None,
                     help="write posterior npz (theta_mean/theta_std/"

@@ -17,11 +17,12 @@ parameters.  Member 0 is always the control.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from .calibrate import CALIBRATABLE, apply_multipliers
+from .parallel.sharding import DeviceSlabs, slab_devices
 from .physics import constants as c
 from .physics.hydrology import Geometry
 from .state import Forcing, ModelState, SoilParams
@@ -62,6 +63,11 @@ class EnsembleResult(NamedTuple):
     runoff: torch.Tensor     # [members, days, n] daily runoff    (mm/day)
     npp: torch.Tensor        # [members, days, n] daily NPP  (g DM/plant)
     final_states: ModelState  # member-stacked end states [members, n, ...]
+
+
+#: The annual totals of :func:`run_ensemble_annual` by the day diagnostic
+#: each sums.
+_ANNUAL = dict(evap="evap_day", runoff="rnf_day", npp="npp")
 
 
 def _members(theta: Dict[str, torch.Tensor]) -> int:
@@ -139,7 +145,8 @@ def run_ensemble_annual(theta: Dict[str, torch.Tensor],
                         vegetation: bool = True,
                         use_kernel=None,
                         zd09_every: int = 1,
-                        sharding=None
+                        sharding=None,
+                        devices: Optional[Sequence] = None
                         ) -> Dict[str, torch.Tensor]:
     """Ensemble with annual totals only: memory O(members x cells).
 
@@ -154,36 +161,58 @@ def run_ensemble_annual(theta: Dict[str, torch.Tensor],
     within it: every operation of the day is per cell, so nothing crosses
     the ranks.
 
+    With ``devices`` (a device may repeat), or a ``sharding`` whose rank
+    holds several devices, the cells are cut once into device slabs
+    (``parallel.sharding.DeviceSlabs``) before the fold and each slab is
+    folded on its own device, so a cell's members never straddle two
+    slabs: each day is one day step a slab (on the card one kernel launch
+    a slab), nothing crosses the slabs, and the totals are joined on the
+    first device once, at the end.
+
     Returns ``{"evap", "runoff", "npp"}`` as ``[members, n]`` totals
     (mm and g DM).
     """
     if sharding is not None:
         params, state0 = sharding.put(params), sharding.put(state0)
         forcing_days = sharding.put_block(forcing_days)
+    devices = slab_devices(sharding, devices)
     dt = c.SDAY / nisurf
     m = _members(theta)
     n = state0.veg.lai.shape[0]
-    params_m, state_m = _fold_problem(theta, params, state0, m)
-    ev, rn, np_ = _run_annual_folded(state_m, forcing_days, params_m, geom,
-                                     dt, m, nisurf, vegetation, use_kernel,
-                                     zd09_every)
+    if devices is None:
+        slabs, parts = None, [(params, state0, forcing_days)]
+    else:
+        slabs = DeviceSlabs.create(n, devices)
+        parts = list(zip(slabs.put(params), slabs.put(state0),
+                         slabs.put_block(forcing_days)))
+    folded = [_fold_problem({k: v.to(s.veg.lai.device)
+                             for k, v in theta.items()}, p, s, m)
+              for p, s, _ in parts]
+    sums = _run_annual_folded([s for _, s in folded],
+                              [f for _, _, f in parts],
+                              [p for p, _ in folded], geom, dt, m, nisurf,
+                              vegetation, use_kernel, zd09_every)
     # [n*m] -> [n, m] -> the [m, n] contract.
-    return dict(evap=ev.reshape(n, m).T, runoff=rn.reshape(n, m).T,
-                npp=np_.reshape(n, m).T)
+    sums = [{k: v.reshape(-1, m) for k, v in s.items()} for s in sums]
+    out = sums[0] if slabs is None else slabs.gather(sums, "result")
+    return {k: v.T for k, v in out.items()}
 
 
-def _run_annual_folded(state_m, forcing_days, params_m, geom, dt, m,
-                       nisurf, vegetation, use_kernel, zd09_every):
-    """The folded day loop of :func:`run_ensemble_annual`: each day's
-    ``[n]`` forcing folded to ``[n*m]``, one day step, the sums."""
-    ev = rn = np_ = torch.zeros_like(state_m.veg.lai)
-    for d in range(forcing_days.tas.shape[0]):
-        f_m = forcing_days.map(lambda x: fold(x[d], m))
-        state_m, diags = day_step(state_m, f_m, params_m, geom, dt, nisurf,
-                                  use_kernel=use_kernel,
-                                  zd09_every=zd09_every,
-                                  vegetation=vegetation)
-        ev = ev + diags["evap_day"]
-        rn = rn + diags["rnf_day"]
-        np_ = np_ + diags["npp"]
-    return ev, rn, np_
+def _run_annual_folded(states, forcings, params, geom, dt, m, nisurf,
+                       vegetation, use_kernel, zd09_every):
+    """The folded day loop of :func:`run_ensemble_annual` over slabs
+    (a list each; the whole problem is one slab): each day, each slab's
+    ``[n_slab]`` forcing folded to ``[n_slab*m]``, one day step, the
+    slab's sums.  Returns each slab's ``{"evap", "runoff", "npp"}`` sums
+    over the folded axis, on its device."""
+    sums = [dict.fromkeys(_ANNUAL, torch.zeros_like(s.veg.lai))
+            for s in states]
+    for d in range(forcings[0].tas.shape[0]):
+        for i, (f, p) in enumerate(zip(forcings, params)):
+            f_m = f.map(lambda x: fold(x[d], m))
+            states[i], diags = day_step(states[i], f_m, p, geom, dt, nisurf,
+                                        use_kernel=use_kernel,
+                                        zd09_every=zd09_every,
+                                        vegetation=vegetation)
+            sums[i] = {k: v + diags[_ANNUAL[k]] for k, v in sums[i].items()}
+    return sums

@@ -50,8 +50,11 @@ from .launch import host_shard_bounds, process_count, process_index
 #: "routing", "lateral", "spinup", "calibrate", "output"; between the
 #: device slabs of one process "halo" (one halo row copied), "reshard"
 #: (the packed slabs to the row bands or back), "gather" (a cross-cell
-#: module's operands onto the first device and its result cut back) and
-#: "state" (a whole state gathered or cut for a caller outside the day).
+#: module's operands onto the first device and its result cut back),
+#: "state" (a whole state gathered or cut for a caller outside the day)
+#: and "result" (a driver's outputs joined onto the first device: the
+#: closed loop's at its end, the spin-up's drift and NEE once a
+#: rehearsal year).
 collectives: collections.Counter = collections.Counter()
 
 
@@ -172,6 +175,16 @@ class CellSharding:
         return self._all_reduce(x, dist.ReduceOp.MAX, caller)
 
 
+def slab_devices(sharding: Optional[CellSharding],
+                 devices: Optional[Sequence] = None):
+    """The devices a driver cuts its cells over as :class:`DeviceSlabs`:
+    ``devices`` where given, else those of a ``sharding`` whose rank holds
+    several, else None (the cells stay whole on one device)."""
+    if devices is None and sharding is not None and sharding.n_devices > 1:
+        return sharding.devices
+    return devices
+
+
 @dataclasses.dataclass(frozen=True)
 class Gathered:
     """A cross-cell module's operands over the whole cell axis (``params``:
@@ -289,16 +302,17 @@ class DeviceSlabs:
         """:meth:`put` for ``[days, n, ...]`` blocks (cells on axis 1)."""
         return self._split(tree, 1)
 
-    def gather(self, parts: list, caller: str, device=None):
+    def gather(self, parts: list, caller: str, device=None, axis: int = 0):
         """The slabs' trees joined in cell order on ``device`` (the first
-        device by default), counted as one exchange of ``caller``."""
+        device by default), the cells on ``axis``, counted as one exchange
+        of ``caller``."""
         collectives[caller] += 1
         device = self.device if device is None else torch.device(device)
 
         def join(xs):
             if len(xs) == 1 or xs[0].dim() == 0:
                 return _move(xs[0], device)
-            return torch.cat([_move(x, device) for x in xs])
+            return torch.cat([_move(x, device) for x in xs], dim=axis)
         return _zip_map(join, parts)
 
     def host(self, parts: list) -> dict:

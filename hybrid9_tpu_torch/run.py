@@ -34,7 +34,7 @@ from .grids.routing import (bankfull_width_m, cell_area_m2,
                             slope_from_accumulation)
 from .io.writer import FocusCSVWriter, to_host
 from .parallel.launch import local_device, process_count
-from .parallel.sharding import DeviceSlabs, Gathered
+from .parallel.sharding import DeviceSlabs, Gathered, slab_devices
 from .physics.hydrology import Geometry
 from .physics.lateral import make_lateral_params
 from .physics.routing import (GridKinematicParams, GridMuskingumParams,
@@ -43,7 +43,8 @@ from .physics.routing import (GridKinematicParams, GridMuskingumParams,
 from .physics.snow import SnowParams, TwoLayerSnowParams
 from .state import AnnualAccumulators, Forcing, ModelState, SoilParams, \
     initial_state
-from .step import annual_means, block_step, slab_block_step
+from .step import (annual_means, block_step, day_step, slab_block_step,
+                   slab_day_step)
 from .utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -119,8 +120,7 @@ class Simulation:
             if state is not None:
                 state = sharding.put(state)
             self.host_lo, self.host_hi = sharding.lo, sharding.hi
-            if devices is None and sharding.n_devices > 1:
-                devices = sharding.devices
+        devices = slab_devices(sharding, devices)
         self.device = params.theta_s.device
         self.geom = Geometry.from_layer_grid(self.grid)
         self.params = params
@@ -199,6 +199,17 @@ class Simulation:
     @state.setter
     def state(self, state: ModelState) -> None:
         self._state = state if self.slabs is None else self.slabs.put(state)
+
+    @property
+    def slab_states(self) -> list:
+        """The model state as it is held: on device slabs one tree a slab
+        on its device, else a list of the one state.  Nothing is gathered
+        or cut, on reading or on setting."""
+        return [self._state] if self.slabs is None else list(self._state)
+
+    @slab_states.setter
+    def slab_states(self, states: list) -> None:
+        self._state = states[0] if self.slabs is None else list(states)
 
     def _gathered(self, params):
         """A cross-cell module's global ``params``, wrapped to gather its
@@ -322,14 +333,50 @@ class Simulation:
             out = block_step(self._state, acc, block, self.params, *run,
                              focus_idx=self.focus_idx, **self.step_kwargs())
         else:
-            if not isinstance(block, list):
-                block = self.slabs.put_block(block)
-            out = slab_block_step(self.slabs, self._state, acc, block,
+            out = slab_block_step(self.slabs, self._state, acc,
+                                  self._slab_blocks(block),
                                   self._param_slabs, *run,
                                   focus_idx=self.focus_idx,
                                   **self.step_kwargs())
         self._state, acc = out[:2]
         return acc, (out[2] if len(out) > 2 else None)
+
+    def days(self, block):
+        """Advance the state a day at a time over the days of a forcing
+        block (as :meth:`advance` takes it), yielding each day's
+        diagnostics as a list: one dict a slab, each on its slab's device
+        (the one dict without slabs).  The state stays where it is held
+        (:attr:`slab_states`)."""
+        run = (self.geom, self.cfg.dt, self.cfg.nisurf)
+        kw = self.step_kwargs()
+        if self.slabs is None:
+            for d in range(block.tas.shape[0]):
+                self._state, diags = day_step(
+                    self._state, block.map(lambda x: x[d]), self.params,
+                    *run, **kw)
+                yield [diags]
+            return
+        blocks = self._slab_blocks(block)
+        for d in range(blocks[0].tas.shape[0]):
+            self._state, diags = slab_day_step(
+                self.slabs, self._state, [b.map(lambda x: x[d])
+                                          for b in blocks],
+                self._param_slabs, *run, **kw)
+            yield diags
+
+    def _slab_blocks(self, block) -> list:
+        """A forcing block as one block a slab on its device: one from
+        :meth:`forcing_block` already is, a whole block is cut."""
+        return block if isinstance(block, list) else self.slabs.put_block(
+            block)
+
+    def join(self, parts: list) -> torch.Tensor:
+        """The slabs' tensors, cells on the last axis, joined in cell order
+        on the first device and counted as one ``"result"`` exchange (the
+        one tensor, without slabs)."""
+        if self.slabs is None:
+            return parts[0]
+        return self.slabs.gather(parts, "result", axis=-1)
 
     def host_means(self, acc) -> Dict[str, np.ndarray]:
         """The annual means of ``acc`` as float64 numpy arrays over this

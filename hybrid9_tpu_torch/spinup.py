@@ -15,10 +15,11 @@ upstream pool's own steady state).  A few rehearsal years iterate out
 what remains nonlinear; convergence is checked on the slow pool and
 reported with the annual NEE.
 
-A rehearsal year is the run's own ``day_step`` (``Simulation.step_kwargs``:
-the kernel, snow, routing as configured) over forcing blocks, with the
-flux sums as ``[n]`` tensors on the run's device; the host reads the
-slow pool's drift, the NEE and the pool means once per rehearsal year.
+A rehearsal year is the run's own day step (``Simulation.days``, with
+``Simulation.step_kwargs``: the kernel, snow, routing as configured)
+over forcing blocks, with the flux sums as ``[n]`` tensors on the run's
+device (one set a slab on device slabs); the host reads the slow pool's
+drift, the NEE and the pool means once per rehearsal year.
 
 On one rank's slab of a multi-process run (``sim.sharding``) the drift is
 the maximum over every rank's land cells and the means are global sums
@@ -39,7 +40,6 @@ import torch
 
 from . import calendar
 from .physics.carbon import RESP_FAST, TO_FAST, TO_SLOW
-from .step import day_step
 from .utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -63,16 +63,9 @@ _DIAG_KEY = dict(
     grow_fm="v_grow_fm", loss_fm="v_loss_fm")
 
 
-def _spinup_block(state, sums, forcing_block, params, geom, dt, nisurf,
-                  **step_kwargs):
-    """The day step over a ``[days, n]`` forcing block, adding each day's
-    carbon-cycle turnover to ``sums`` (per-cell annual sums of the
-    diagnostics of :data:`_DIAG_KEY`).  Returns ``(state, sums)``."""
-    for d in range(forcing_block.tas.shape[0]):
-        state, diags = day_step(state, forcing_block.map(lambda x: x[d]),
-                                params, geom, dt, nisurf, **step_kwargs)
-        sums = {k: sums[k] + diags[_DIAG_KEY[k]] for k in sums}
-    return state, sums
+def _add_day(sums, diags):
+    """``sums`` with a day's ``diags`` added (:data:`_DIAG_KEY`)."""
+    return {k: sums[k] + diags[_DIAG_KEY[k]] for k in sums}
 
 
 def _jump(pool, inflow, outflow, damping: float = 1.0):
@@ -155,6 +148,13 @@ def spinup_carbon(sim, forcing_provider, year: Optional[int] = None,
     C/m^2/yr; ``spin_vegetation`` also jumps the plant pools (needed for
     the annual NEE to converge to about 0).
 
+    The rehearsal years advance the state where ``sim`` holds it
+    (``Simulation.days``): on device slabs (``sim.slabs``) with one set of
+    flux sums a slab on its device, each slab jumping its own pools, the
+    state neither gathered nor cut, and the slow pool's drift and the NEE
+    of a year joined on the first device (``Simulation.join``) for the
+    year's one host copy.
+
     Returns a report: loops used, the final max |d slow| per year, the
     final mean annual NEE (g C/m^2/yr) and the mean pools, over land (of
     every rank, under ``sim.sharding``).
@@ -166,41 +166,47 @@ def spinup_carbon(sim, forcing_provider, year: Optional[int] = None,
     year = int(year if year is not None else cfg.start_year)
     ndays = calendar.days_in_year(year)
     block_days = block_days or cfg.forcing_block_days
-    kw = sim.step_kwargs()
     land = slice(0, sim._local_land_count())
+
+    def joined(parts: list) -> np.ndarray:
+        """The slabs' ``[r, n_slab]`` rows joined over this run's cells
+        and cut to land, in one host copy."""
+        return sim.join(parts)[:, land].cpu().numpy()
+
     report: Dict[str, float] = {}
     drift = float("inf")
     loops = 0
     for loop in range(max_loops):
         t0 = time.perf_counter()
-        slow0 = sim.state.carbon.c_soil_slow
-        sums = {k: torch.zeros((sim.n,), dtype=sim.dtype, device=sim.device)
-                for k in _DIAG_KEY}
-        state = sim.state
+        slow0 = [st.carbon.c_soil_slow for st in sim.slab_states]
+        sums = [{k: torch.zeros_like(s) for k in _DIAG_KEY} for s in slow0]
         doy = 1
         while doy <= ndays:
             nblk = min(block_days, ndays - doy + 1)
-            block = forcing_provider(year, doy, nblk)
-            state, sums = _spinup_block(state, sums, block, sim.params,
-                                        sim.geom, cfg.dt, cfg.nisurf, **kw)
+            for diags in sim.days(sim.forcing_block(forcing_provider, year,
+                                                    doy, nblk)):
+                sums = [_add_day(s, dg) for s, dg in zip(sums, diags)]
             doy += nblk
+        states = sim.slab_states
         # The drift over the rehearsal year before the jump: how far from
         # periodic the unaccelerated dynamics already are.  One host copy.
-        d_slow, nee = torch.stack([state.carbon.c_soil_slow - slow0,
-                                   sums["nee"]])[:, land].cpu().numpy()
+        d_slow, nee = joined([torch.stack([st.carbon.c_soil_slow - s0,
+                                           sm["nee"]])
+                              for st, s0, sm in zip(states, slow0, sums)])
         drift = _max_abs(sim, d_slow)
         mean_nee, = _means(sim, nee[None])
         loops = loop + 1
-        sim.state = _ratio_update(state, sums,
-                                  spin_vegetation=spin_vegetation)
+        sim.slab_states = [_ratio_update(st, sm,
+                                         spin_vegetation=spin_vegetation)
+                           for st, sm in zip(states, sums)]
         log.info(SPINUP_LOG, loops, max_loops, drift, mean_nee,
                  time.perf_counter() - t0)
         report = dict(loops=loops, max_dslow=drift, mean_nee=mean_nee)
         if drift < tol_slow:
             break
-    pools = sim.state.carbon
-    means = torch.stack([pools.c_litter, pools.c_soil_fast,
-                         pools.c_soil_slow])[:, land].cpu().numpy()
+    means = joined([torch.stack([st.carbon.c_litter, st.carbon.c_soil_fast,
+                                 st.carbon.c_soil_slow])
+                    for st in sim.slab_states])
     for k, v in zip(("mean_litter", "mean_fast", "mean_slow"),
                     _means(sim, means)):
         report[k] = v

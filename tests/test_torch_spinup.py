@@ -109,17 +109,20 @@ def test_spinup_command_line_matches_jax(tmp_path, monkeypatch):
 
 def test_spinup_block_sums_match_jax(sims):
     """The turnover record of five days (every accumulator of
-    ``_DIAG_KEY``) and the state they end in, in float64 at 1e-9."""
+    ``_DIAG_KEY``) and the state they end in, in float64 at 1e-9: the
+    port's days as the spin-up takes them (``Simulation.days``, on a copy
+    of the shared Simulation) against JAX's ``_spinup_block``."""
     assert spinup._DIAG_KEY == j_spinup._DIAG_KEY
-    jsim, sim, grid = sims
+    jsim, shared, grid = sims
+    sim = t_run.Simulation(shared.cfg, shared.params, state=shared.state,
+                           land_grid=grid)
     block = synthetic_forcing_block(5, sim.n, seed=3, start_doy=150,
                                     lat=grid.cell_lat)
-    zeros = {k: torch.zeros(sim.n, dtype=torch.float64)
-             for k in spinup._DIAG_KEY}
-    state, sums = spinup._spinup_block(
-        sim.state, zeros, Forcing.from_numpy(block, torch.float64, "cpu"),
-        sim.params, sim.geom, sim.cfg.dt, sim.cfg.nisurf,
-        **sim.step_kwargs())
+    sums = {k: torch.zeros(sim.n, dtype=torch.float64)
+            for k in spinup._DIAG_KEY}
+    for diags in sim.days(Forcing.from_numpy(block, torch.float64, "cpu")):
+        sums = spinup._add_day(sums, diags[0])
+    state = sim.state
     jcfg = jsim.cfg
     j_state_, j_sums = j_spinup._spinup_block(
         jsim.state, {k: jnp.zeros(jsim.n) for k in j_spinup._DIAG_KEY},
