@@ -11,7 +11,8 @@ non-zero:
 2. build: compiles ``hybrid9_tpu_torch/csrc/day_kernel.cu`` with nvcc for
    sm_90a and prints the build seconds, the registers and spills of each
    kernel instance, and what the card holds of each (resident blocks an
-   SM, shared memory a block);
+   SM, shared memory a block; for ``day_kernel_any``, whose layer count is
+   a run-time argument, at 10 layers);
 3. kernel vs plain twin on the card: n = 4,096 cells, one day,
    zd09_every in {1, 8}, with and without the frozen-soil impedance,
    nl in {8, 20}, every output of the day: in float32 at the tolerances
@@ -22,7 +23,21 @@ non-zero:
    too.  In float32 a one-ulp difference between two programs (nvcc's
    FMA contraction is one) can flip a knife-edge cell's branch and move
    it by millimetres; such cells, found from the twin alone
-   (``knife_edge_cells``), are held to finiteness and the water balance;
+   (``knife_edge_cells``), are held to finiteness and the water balance.
+   Then ``day_kernel_any`` against the twin at nl in {3, 4, 5, 10, 15, 32}
+   and {8, 20}, zd09_every=8, with and without imp: float64 on the varied
+   columns at 1e-9, float32 on the varied columns off the interfaces with
+   the knife-edge cells set aside and those of ``float32_noise_cells`` and
+   ``rounding_explained`` (at most 5 % in all), at 5 layers and fewer on
+   the reference states; its residency at each count;
+   the edge states of tests/test_edge_states.py (``check_case(...,
+   "edge")``) at nl in {8, 10, 20} through the fixed builds and
+   ``day_kernel_any``, float64 at 1e-9 and float32 off knife edges (about
+   half of those columns are); 64 layers in both dtypes, finite and
+   conserving; 2 layers and one past ``layer_cap`` refused before any
+   launch; and the hot climate, two years at 318 K on 64 reference cells
+   through ``day_step`` on the kernel (730 launches, finite, plant mass
+   and root depth positive, every residual under 0.1 mm);
 4. reference-scope path: ``build_reference_case(66_560, "float32")`` (no
    device named: the card); the kernel against its twin on that case's
    first day; a 10-day synthetic forcing block from day 152 through
@@ -94,22 +109,22 @@ non-zero:
    max |d slow| and mean NEE from ``spinup.SPINUP_LOG``, 365 launches a
    rehearsal year and in the year after;
 13. site mode through the command line (``site --engine kernel`` on the
-   card, 20 summer days at nisurf 48): the daily CSV against ``--engine
+   card, 10 summer days at nisurf 48): the daily CSV against ``--engine
    oracle`` (theta within 5e-3), and ms per site-day on the card and
    with ``--device cpu``;
 14. the closed loop through the command line at 0.5 degrees, float32:
    ``ensemble --members 8`` for the whole default year (365 kernel
    launches at 557,056 cells, a finite file with spread on land, member 0
-   against the control run unfolded, the first 2 folded days against the
+   against the control run unfolded, the first folded day against the
    folded plain twin with knife-edge cells set aside), ``assimilate
-   --members 16 --days 10 --obs-twin 0.5`` (10 launches at 1,114,112
+   --members 16 --days 5 --obs-twin 0.5`` (5 launches at 1,114,112
    cells, a finite posterior within the clamp, the padding lanes'
    multipliers bitwise their first draw from the card's generator),
-   ``calibrate --obs-twin 0.4 --fields hksat --days 2 --steps 2`` with a
+   ``calibrate --obs-twin 0.4 --fields hksat --days 1 --steps 2`` with a
    scalar and a per-cell theta (no kernel launch, finite gradients, the
    loss falls; one Adam step's seconds and the fit's peak memory), the
    kernel wrapper raising under autograd, and the site ``calibrate`` of
-   tests/test_calibrate.py on the card and the CPU; the kernel day at both
+   tests/test_calibrate.py, cut to 4 days, on the card and the CPU; the kernel day at both
    folded widths with its rounds, the ensemble day and year, and a DA
    cycle's forecast and analysis;
 15. multiple processes on the one card: ``python -m hybrid9_tpu_torch
@@ -122,13 +137,13 @@ non-zero:
    straight 1902; that checkpoint refused under 1 rank; each rank's
    seconds a year, collectives a day and peak memory; then ``ensemble``,
    ``assimilate`` and ``calibrate --per-cell`` with ``--shard`` as 2
-   ranks at 2 degrees against one process.  A rank that fails fails the
-   phase;
+   ranks at 2 degrees and 4 substeps against one process.  A rank that
+   fails fails the phase;
 16. the study programs, each through ``python -m
    hybrid9_tpu_torch.scripts.<name>`` in a child process on the card, one
    after another (``study_path``): ``flagship_soak --years 2`` (every
    year clean), ``flagship_run --years 2`` (two annual files, the worst
-   residual under 0.1 mm), ``router_compare --iters 20 --soak-years 1``
+   residual under 0.1 mm), ``router_compare --iters 10 --soak-years 1``
    (ms a day per scheme, each soak clean), ``da_soak --resolution 0.25
    --days 2`` (16 members of the 0.25-degree grid, 4,440,064 cells, in
    one kernel launch a day), ``zd09_drift --ks 1,8 --years 2`` at
@@ -161,7 +176,16 @@ non-zero:
    ``--shard`` on 3 slabs of the card (as on a box of 3 cards) the files
    the commands write without it; the ensemble day, the DA cycle and its
    forecast (ms, launches, host syncs), the fit's Adam step and peak
-   memory and the rehearsal year's seconds at k = 1, 2, 4 and unsharded.
+   memory and the rehearsal year's seconds at k = 1, 2, 4 and unsharded;
+19. a global year at 10 layers through the command line
+   (``layer_year_path``): a raw soil archive of 10 layers at 0.5 degrees,
+   ``prep-soil --layers 10``, ``run --years 1901 1901`` on
+   ``exponential_interfaces(10)`` (365 launches of ``day_kernel_any``, the
+   annual file and every day's residual checked); then 30 days in this
+   process, ``day_kernel_any`` against the twin on the winter state at full
+   width, its ms against the fixed nl=8 build's and its own at nl=8 on the
+   flagship winter state, the bound at 10 layers, and 5 days of
+   ``block_step(devices=[cuda:0] * 3)`` bitwise the unsharded block.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -190,7 +214,8 @@ from hybrid9_tpu_torch import calendar, cli, kernels
 from hybrid9_tpu_torch.calibrate import apply_multipliers
 from hybrid9_tpu_torch.config import (CANONICAL_ZI_MM, Config, LayerGrid,
                                       exponential_interfaces)
-from hybrid9_tpu_torch.data.synthetic import (synthetic_forcing_block,
+from hybrid9_tpu_torch.data.synthetic import (synthesize_raw_soil_archive,
+                                              synthetic_forcing_block,
                                               synthetic_forcing_day,
                                               synthetic_soil_params)
 from hybrid9_tpu_torch.entry import (build_flagship_case,
@@ -251,6 +276,9 @@ MAX_RESIDUAL_MM = 0.1
 # cells may be knife edges.
 KNIFE_EDGE_M = 0.005
 MAX_KNIFE_EDGE_SHARE = 0.05
+# A float32 twin day this share of F32_TOL from the float64 day of the
+# same inputs is ill-conditioned (see float32_noise_cells).
+F32_NOISE_SHARE = 0.5
 
 
 def _fields(soil, diags):
@@ -294,6 +322,51 @@ def _compare(label, got, want, tol, bsw, held=None):
     return float(d.amax(dim=1)[held].max())
 
 
+def twin_days(variants, veg, forcing, geom, dt=1800.0, nisurf=48, **kw):
+    """The plain twin's day of each ``(soil, params)`` of ``variants``,
+    beside ``veg``, ``forcing`` and ``kw``, as one twin day of the cells
+    that many times over: the day is cell-local, so each cell's day is the
+    one it has alone, and the twin, bound by its launches, takes about the
+    time of one day.  Returns a ``(SoilState, diags)`` pair a variant."""
+    k, n = len(variants), variants[0][0].zwt.shape[0]
+
+    def cat(objs):
+        return type(objs[0])(**{f.name: torch.cat([getattr(o, f.name)
+                                                    for o in objs])
+                                for f in dataclasses.fields(objs[0])})
+
+    def rep(x):
+        return torch.cat([x] * k) if isinstance(x, torch.Tensor) else x
+    soil, diags = day_kernel.hydrology_day_plain(
+        cat([v[0] for v in variants]), veg.map(rep),
+        cat([v[1] for v in variants]), forcing.map(rep), geom, dt, nisurf,
+        **{key: rep(v) for key, v in kw.items()})
+    return [(soil.map(lambda x, i=i: x[i * n:(i + 1) * n]),
+             {key: v[i * n:(i + 1) * n] for key, v in diags.items()})
+            for i in range(k)]
+
+
+def _nudged_soils(soil):
+    """The soil water and water table nudged one ulp up, then down."""
+    def nudge(x, toward):
+        return torch.nextafter(x, torch.full_like(x, toward))
+    return [soil.replace(h2osoi_liq=nudge(soil.h2osoi_liq, toward),
+                         zwt=nudge(soil.zwt, toward))
+            for toward in (float("inf"), float("-inf"))]
+
+
+def _knife_edges(want, nudged, geom, params):
+    """knife_edge_cells of the twin's day ``want`` and its nudged days."""
+    bottom = geom.zi[len(geom.dz_soil)] / 1000.0
+    edge = (want[0].zwt.double() - bottom).abs() < KNIFE_EDGE_M
+    base = _fields(*want)
+    for day in nudged:
+        for bad in _outside(_fields(*day), base, F32_TOL,
+                            params.bsw).values():
+            edge |= bad
+    return edge
+
+
 def knife_edge_cells(soil, veg, params, forcing, geom, want, dt=1800.0,
                      nisurf=48, **kw):
     """Float32 cells on a knife edge, found from the plain twin alone: its
@@ -303,21 +376,77 @@ def knife_edge_cells(soil, veg, params, forcing, geom, want, dt=1800.0,
     initial soil water and water table are nudged one ulp up or down.  On
     such a cell a one-ulp difference between two float32 programs (nvcc's
     FMA contraction is one) can flip a branch and move it by millimetres
-    within the day."""
-    bottom = geom.zi[len(geom.dz_soil)] / 1000.0
-    edge = (want[0].zwt.double() - bottom).abs() < KNIFE_EDGE_M
-    base = _fields(*want)
-    for toward in (float("inf"), float("-inf")):
-        def nudge(x):
-            return torch.nextafter(x, torch.full_like(x, toward))
-        nudged = day_kernel.hydrology_day_plain(
-            soil.replace(h2osoi_liq=nudge(soil.h2osoi_liq),
-                         zwt=nudge(soil.zwt)),
-            veg, params, forcing, geom, dt, nisurf, **kw)
-        for bad in _outside(_fields(*nudged), base, F32_TOL,
-                            params.bsw).values():
-            edge |= bad
-    return edge
+    within the day.  Both nudged days are one :func:`twin_days` call."""
+    nudged = twin_days([(s, params) for s in _nudged_soils(soil)], veg,
+                       forcing, geom, dt, nisurf, **kw)
+    return _knife_edges(want, nudged, geom, params)
+
+
+def twin_and_knife_edges(soil, veg, params, forcing, geom, dt=1800.0,
+                         nisurf=48, **kw):
+    """The plain twin's day of these inputs and its
+    :func:`knife_edge_cells`, from one :func:`twin_days` call."""
+    want, *nudged = twin_days(
+        [(soil, params)] + [(s, params) for s in _nudged_soils(soil)], veg,
+        forcing, geom, dt, nisurf, **kw)
+    return want, _knife_edges(want, nudged, geom, params)
+
+
+def float32_noise_cells(soil, veg, params, forcing, geom, want, dt=1800.0,
+                        nisurf=48, **kw):
+    """Float32 cells whose plain-twin day ``want`` lies more than
+    F32_NOISE_SHARE of F32_TOL from the float64 day of the same inputs:
+    float32 rounding alone moves them that far, so no two float32
+    programs need agree on them within F32_TOL (on the exponential grids,
+    a near-dry top layer of 20 mm under a bare canopy's evaporation, and
+    tables crossing many thin layers in a day)."""
+    def up(x):
+        return x.double() if isinstance(x, torch.Tensor) else x
+    exact = day_kernel.hydrology_day_plain(
+        soil.map(up), veg.map(up), params.map(up), forcing.map(up), geom,
+        dt, nisurf, **{k: up(v) for k, v in kw.items()})
+    part = {k: (rtol * F32_NOISE_SHARE, atol * F32_NOISE_SHARE)
+            for k, (rtol, atol) in F32_TOL.items()}
+    noisy = torch.zeros_like(soil.zwt, dtype=torch.bool)
+    for bad in _outside(_fields(*want), _fields(*exact), part,
+                        params.bsw).values():
+        noisy |= bad
+    return noisy
+
+
+def rounding_explained(got, want, soil, veg, params, forcing, geom, held,
+                       dt=1800.0, nisurf=48, **kw):
+    """The float32 cells of ``held`` whose day ``got`` lies outside F32_TOL
+    of the plain twin's ``want`` but within F32_TOL of the twin's day from
+    inputs one ulp away (``theta_s``, ``psi_s``, ``bsw``, ``hksat``, the
+    soil water or the water table nudged up or down, one at a time): knife
+    edges that a perturbation of the size of a rounding flips, so that
+    ``got`` is the twin's day to rounding.  The twelve nudged days are one
+    :func:`twin_days` call, made only if there is such a cell; any that
+    none explains stays held."""
+    def outside(a, b):
+        bad = torch.zeros_like(held)
+        for x in _outside(_fields(*a), _fields(*b), F32_TOL,
+                          params.bsw).values():
+            bad |= x
+        return bad
+
+    left = outside(got, want) & held
+    explained = torch.zeros_like(held)
+    if not bool(left.any()):
+        return explained
+    variants = []
+    for name in ("theta_s", "psi_s", "bsw", "hksat", "h2osoi_liq", "zwt"):
+        owner = soil if name in ("h2osoi_liq", "zwt") else params
+        x = getattr(owner, name)
+        for toward in (float("inf"), float("-inf")):
+            nudged = owner.replace(**{name: torch.nextafter(
+                x, torch.full_like(x, toward))})
+            variants.append((nudged, params) if owner is soil
+                            else (soil, nudged))
+    for day in twin_days(variants, veg, forcing, geom, dt, nisurf, **kw):
+        explained |= left & ~outside(got, day)
+    return explained
 
 
 def check_day(label, got, want, bsw, held=None):
@@ -342,15 +471,75 @@ def check_day(label, got, want, bsw, held=None):
 
 # Kernel-vs-twin regimes: float32 on the reference states and on columns
 # across regimes off the interfaces; float64 on columns across regimes
-# with water tables on the column-bottom interface too.
+# with water tables on the column-bottom interface too; both on the edge
+# states.
 CHECK_REGIMES = ((torch.float32, "reference"),
                  (torch.float32, "varied_off_interfaces"),
-                 (torch.float64, "varied"))
+                 (torch.float64, "varied"),
+                 (torch.float32, "edge"),
+                 (torch.float64, "edge"))
+# The three forcings of the edge states (tests/test_edge_states.py):
+# deluge, dry heat and frozen calm.
+EDGE_FORCINGS = (
+    dict(tas=288.0, rlds=350.0, rsds=180.0, huss=8e-3, ps=101325.0,
+         pr=5.0e-4, rhs=95.0),
+    dict(tas=313.0, rlds=380.0, rsds=400.0, huss=4e-3, ps=98000.0,
+         pr=0.0, rhs=12.0),
+    dict(tas=258.0, rlds=180.0, rsds=30.0, huss=8e-4, ps=102000.0,
+         pr=0.0, rhs=70.0))
+EDGE_COLUMNS = 64
+
+
+def edge_columns(nl, grid):
+    """The columns of tests/test_edge_states.py::_build_edge_ensemble on
+    the branch boundaries of the drainage and water-table walks, at ``nl``
+    layers: ``zwt`` exactly on an interface (interfaces 1 to nl + 1 in
+    turn, each one at nl = 8 as there, every one of them at nl <= 35), at
+    0, at the 80 m clamp and 1e-6 m below the column; every layer at
+    WATMIN; a saturated column; the bottom or the top layer at half
+    WATMIN.  Float64 numpy arrays (params, h2osoi, zwt, wa, smp, lai,
+    lai_litter, rootr), one row a column."""
+    zi, dz = grid.zi, grid.dz
+    n = EDGE_COLUMNS
+    p = synthetic_soil_params(n, seed=42, n_layers=nl)
+    rng = np.random.RandomState(42)
+    h2osoi = rng.uniform(0.3, 0.9, size=(n, nl)) * p["theta_s"] \
+        * dz[None, :nl]
+    zwt = np.empty(n)
+    for i in range(n):
+        k = i % 16
+        if k < 9:
+            zwt[i] = zi[1 + (i // 16 * 9 + k) % (nl + 1)] / 1000.0
+        elif k == 9:
+            zwt[i] = 0.0
+        elif k == 10:
+            zwt[i] = 80.0
+        elif k == 11:
+            zwt[i] = zi[nl] / 1000.0 + 1e-6
+        elif k == 12:
+            h2osoi[i] = np.full(nl, c.WATMIN)
+            zwt[i] = 1.0
+        elif k == 13:
+            h2osoi[i] = p["theta_s"][i] * dz[:nl]
+            zwt[i] = 0.05
+        elif k == 14:
+            h2osoi[i, nl - 1] = 0.5 * c.WATMIN
+            zwt[i] = 3.0
+        else:
+            h2osoi[i, 0] = 0.5 * c.WATMIN
+            zwt[i] = 0.2
+    wa = np.where(np.arange(n) % 3 == 0, 5000.0, 3000.0)
+    s = np.clip(h2osoi / dz[None, :nl] / p["theta_s"], 0.01, 1.0)
+    smp = np.maximum(c.SMPMIN, p["psi_s"] * s ** (-p["bsw"]))
+    lai = np.where(np.arange(n) % 4 == 0, 0.001, 2.0)
+    return (p, h2osoi, zwt, wa, smp, lai, np.full(n, 0.2),
+            np.full((n, nl), 1.0 / nl))
 
 
 def check_case(n, nl, dtype, device, regime, seed=0):
     """Inputs of a kernel-vs-twin case on the canonical 8-layer grid or
-    the 20-layer one, with a random frozen-soil impedance.
+    the exponential one of ``nl`` layers, with a random frozen-soil
+    impedance.
 
     ``regime="reference"``: the reference case's initial state (water
     tables 5 m below the column) under day-180 forcing, the inputs of
@@ -360,19 +549,41 @@ def check_case(n, nl, dtype, device, regime, seed=0):
     near-saturated.  ``"varied_off_interfaces"``: the same columns but
     for the tables placed exactly on the column bottom, which keep their
     random depth (in float32 every one of those is a knife edge).
+    ``"edge"``: the columns of :func:`edge_columns` under each of the
+    three EDGE_FORCINGS, 192 cells repeated to ``n``.
     """
-    if regime not in ("reference", "varied", "varied_off_interfaces"):
+    if regime not in ("reference", "varied", "varied_off_interfaces",
+                      "edge"):
         raise ValueError(f"unknown regime {regime!r}")
     zi = CANONICAL_ZI_MM if nl == 8 else exponential_interfaces(nl)
     grid = LayerGrid.from_interfaces(zi)
-    raw = synthetic_soil_params(n, seed=seed, n_layers=nl)
-    params = SoilParams.from_numpy(raw, dtype, device)
-    state = initial_state(params, grid.dz, grid.zi, dtype, device)
     rng = np.random.RandomState(seed + 1)
 
     def t(x):
         return torch.as_tensor(x, dtype=dtype, device=device)
 
+    if regime == "edge":
+        (raw, h2osoi, zwt, wa, smp, lai, litter,
+         rootr) = edge_columns(nl, grid)
+        pick = np.arange(n) % (EDGE_COLUMNS * len(EDGE_FORCINGS))
+        col, regime_of = pick % EDGE_COLUMNS, pick // EDGE_COLUMNS
+        params = SoilParams.from_numpy({k: v[col] for k, v in raw.items()},
+                                       dtype, device)
+        state = initial_state(params, grid.dz, grid.zi, dtype, device)
+        soil = state.soil.replace(h2osoi_liq=t(h2osoi[col]),
+                                  zwt=t(zwt[col]), wa=t(wa[col]),
+                                  smp=t(smp[col]))
+        veg = state.veg.replace(lai=t(lai[col]), lai_litter=t(litter[col]),
+                                rootr=t(rootr[col]))
+        forcing = Forcing.from_numpy(
+            {k: np.array([f[k] for f in EDGE_FORCINGS])[regime_of]
+             for k in EDGE_FORCINGS[0]}, dtype, device)
+        imp = t(rng.uniform(0.05, 1.0, (n, nl)))
+        return soil, veg, params, forcing, \
+            Geometry.from_layer_grid(grid), imp
+    raw = synthetic_soil_params(n, seed=seed, n_layers=nl)
+    params = SoilParams.from_numpy(raw, dtype, device)
+    state = initial_state(params, grid.dz, grid.zi, dtype, device)
     soil = state.soil
     if regime != "reference":
         zwt = 10.0 ** rng.uniform(np.log10(0.03), np.log10(12.0), n)
@@ -390,43 +601,75 @@ def check_case(n, nl, dtype, device, regime, seed=0):
     return soil, state.veg, params, forcing, geom, imp
 
 
-def check_kernel(label, case, regime, zd09_every, use_imp):
+def check_kernel(label, case, regime, zd09_every, use_imp,
+                 instances=(None,)):
     """One kernel-vs-twin case on the inputs ``case`` of
-    :func:`check_case`: the kernel day (one launch through the dispatch)
-    against the plain twin's.  In the float32 varied regime the cells of
-    :func:`knife_edge_cells` are held only to finiteness and the water
-    balance, and may be at most MAX_KNIFE_EDGE_SHARE of the case.
-    Returns (max |diff| of h2osoi_liq in mm, max residual in mm, number
-    of knife-edge cells)."""
+    :func:`check_case`: the kernel day against the plain twin's, once for
+    each of ``instances`` (None: through the dispatch; False: the build
+    for the layer count; True: ``day_kernel_any``), each a launch, all
+    against one twin day.  In the float32 regimes but the reference one
+    the cells of :func:`knife_edge_cells` are set aside, held only to
+    finiteness and the water balance, and for ``day_kernel_any`` those of
+    :func:`float32_noise_cells` and :func:`rounding_explained` too.  They
+    may be at most MAX_KNIFE_EDGE_SHARE of the case but in the edge
+    regime, whose columns sit on the branches by design (about half of
+    its float32 cells are knife edges).  Returns (max |diff| of
+    h2osoi_liq in mm over the instances, max residual in mm, the most
+    cells set aside for an instance)."""
     soil, veg, params, forcing, geom, imp = case
     kw = dict(imp=imp if use_imp else None, zd09_every=zd09_every)
     rest = (veg, params, forcing, geom, 1800.0, 48)
-    got = day_kernel.hydrology_day(soil, *rest, use_kernel=True, **kw)
-    want = day_kernel.hydrology_day_plain(soil, *rest, **kw)
-    held = None
-    n_edge = 0
+    edge = noisy = None
     if regime != "reference" and soil.zwt.dtype == torch.float32:
-        edge = knife_edge_cells(soil, *rest[:4], want, **kw)
-        n_edge = int(edge.sum())
-        if n_edge > MAX_KNIFE_EDGE_SHARE * edge.numel():
-            raise RuntimeError(f"{label}: {n_edge} of {edge.numel()} "
-                               f"cells on a knife edge")
-        held = ~edge
-    return check_day(label, got, want, params.bsw, held) + (n_edge,)
+        want, edge = twin_and_knife_edges(soil, *rest[:4], **kw)
+    else:
+        want = day_kernel.hydrology_day_plain(soil, *rest, **kw)
+    fixed = len(geom.dz_soil) in day_kernel.FIXED_NLS
+    err = res = 0.0
+    n_edge = 0
+    for any_nl in instances:
+        if any_nl is None:
+            got = day_kernel.hydrology_day(soil, *rest, use_kernel=True,
+                                           **kw)
+        else:
+            got = day_kernel.hydrology_day_cuda(soil, *rest, any_nl=any_nl,
+                                                **kw)
+        aside = edge
+        if edge is not None and (any_nl or not fixed):
+            if noisy is None:
+                noisy = edge | float32_noise_cells(soil, *rest[:4], want,
+                                                   **kw)
+            aside = noisy | rounding_explained(got, want, soil, *rest[:4],
+                                               ~noisy, **kw)
+        if aside is not None:
+            n_edge = max(n_edge, int(aside.sum()))
+            if regime != "edge" and \
+                    int(aside.sum()) > MAX_KNIFE_EDGE_SHARE * aside.numel():
+                raise RuntimeError(f"{label}: {int(aside.sum())} of "
+                                   f"{aside.numel()} cells on a knife edge")
+        e, r = check_day(label if any_nl is None else
+                         f"{label} any_nl={any_nl}", got, want, params.bsw,
+                         None if aside is None else ~aside)
+        err, res = max(err, e), max(res, r)
+    return err, res, n_edge
 
 
 def _ptxas_summary(log: str) -> list:
     """(dtype, nl, imp, registers, spill stores, spill loads) per kernel
-    instance, from nvcc -Xptxas -v."""
+    instance, from nvcc -Xptxas -v; ``nl`` is None for
+    ``day_kernel_any``."""
     out = []
     for block in re.split(r"Compiling entry function", log)[1:]:
         m = re.search(r"day_kernelI([fd])Li(\d+)ELb([01])E", block)
+        m_any = re.search(r"day_kernel_anyI([fd])Lb([01])E", block)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block)
-        if m and regs:
-            out.append(dict(dtype="f32" if m.group(1) == "f" else "f64",
-                            nl=int(m.group(2)), imp=m.group(3) == "1",
+        if (m or m_any) and regs:
+            out.append(dict(dtype="f32" if (m or m_any).group(1) == "f"
+                            else "f64",
+                            nl=int(m.group(2)) if m else None,
+                            imp=(m.group(3) if m else m_any.group(2)) == "1",
                             registers=int(regs.group(1)),
                             spill_stores=int(spill.group(1)) if spill else 0,
                             spill_loads=int(spill.group(2)) if spill else 0))
@@ -826,7 +1069,7 @@ SWITCHES = (("hydrology_only", dict(vegetation=False)),
             ("kinematic_packed", dict(routing_form="packed")),
             ("linear_packed", dict(routing_scheme="linear")))
 SPINUP_YEARS = 2
-SITE_DAYS = 20
+SITE_DAYS = 10
 SITE_FIRST_DOY = 180          # summer: no snow, off the ZD09 knife edges
 
 
@@ -1061,10 +1304,11 @@ def site_path(tmp, smi, device_argv=()):
 #: Phase 14: the closed loop at 0.5 degrees.
 ENSEMBLE_MEMBERS = 8          # the ensemble command's default
 DA_MEMBERS = 16               # the assimilate command's default
-DA_DAYS = 10                  # of the command's default 25
-FIT_DAYS = 2                  # of calibrate --config's default 60
+DA_DAYS = 5                   # of the command's default 25
+FIT_DAYS = 1                  # of calibrate --config's default 60
 FIT_STEPS = 2                 # of its default 100
-FOLDED_CHECK_DAYS = 2
+FOLDED_CHECK_DAYS = 1
+SITE_FIT_DAYS = 4             # of the site fit of tests/test_calibrate.py
 DA_FOLDED_CHECK_DAYS = 1      # the first forecast at 16 x 69,632 cells
 
 
@@ -1178,10 +1422,10 @@ def closed_loop_path(tmp, dev, smi, argv=(), **cfg_kw):
     grid): ``ensemble --members 8`` for the full default year (one kernel
     launch a day at 8 x 69,632 cells; member 0 against the control run
     unfolded; the first folded days against the twin), ``assimilate
-    --members 16 --days 10 --obs-twin 0.5`` (one launch a cycle at 16 x
+    --members 16 --days 5 --obs-twin 0.5`` (one launch a cycle at 16 x
     69,632 cells; the first forecast against the twin at that width; the
     padding lanes' multipliers bitwise their first draw), and
-    ``calibrate --obs-twin 0.4 --fields hksat --days 2 --steps 2`` with a
+    ``calibrate --obs-twin 0.4 --fields hksat --days 1 --steps 2`` with a
     scalar and a per-cell theta (no kernel launch; finite gradients; the
     loss falls), the kernel wrapper raising under autograd, and the site
     ``calibrate`` on the card and the CPU.  Returns the phase's
@@ -1468,13 +1712,14 @@ def closed_loop_path(tmp, dev, smi, argv=(), **cfg_kw):
         keys = ("tas", "rlds", "rsds", "huss", "ps", "pr", "rhs")
         with open(clim, "w") as f:
             f.write(",".join(keys) + "\n")
-            for d in range(8):
+            for d in range(SITE_FIT_DAYS):
                 day = synthetic_forcing_day(1, 150 + d, seed=5)
                 f.write(",".join(f"{float(day[k][0]):.8g}" for k in keys)
                         + "\n")
         with open(obs, "w") as f:
             f.write("doy,evap_obs\n" + "".join(f"{d + 1},1.5\n"
-                                               for d in range(8)))
+                                               for d in range(
+                                                   SITE_FIT_DAYS)))
         site = {}
         for label, dargv in (("card", list(argv)),
                              ("cpu", ["--device", "cpu"])):
@@ -1485,11 +1730,13 @@ def closed_loop_path(tmp, dev, smi, argv=(), **cfg_kw):
                              *dargv], f"site calibrate {label}")
             with open(fit_path) as f:
                 fit = json.load(f)
-            if fit["obs_days"] != 8 or not np.isfinite(fit["loss_final"]):
+            if fit["obs_days"] != SITE_FIT_DAYS or \
+                    not np.isfinite(fit["loss_final"]):
                 raise RuntimeError(f"site calibrate {label}: {fit}")
             site[label] = dict(seconds=secs, **fit)
         out["site_calibrate"] = site
-        print(f"closed loop, site calibrate (8 days, 2 steps, nisurf 8): "
+        print(f"closed loop, site calibrate ({SITE_FIT_DAYS} days, 2 steps, "
+              f"nisurf 8): "
               f"{site['card']['seconds']:.2f} s on the card, "
               f"{site['cpu']['seconds']:.2f} s with --device cpu ({smi})")
     finally:
@@ -1502,7 +1749,7 @@ def closed_loop_path(tmp, dev, smi, argv=(), **cfg_kw):
 #: closed-loop legs (phase 14 runs those commands at full width).
 RANKS = (1, 2, 4)
 LOOP_GRID_DEG = 2.0
-LOOP_DA_DAYS = 5
+LOOP_DA_DAYS = 3
 # The fit's loss sums each rank's cells and then the ranks', in another
 # order than one process's sum: float32 sums of some 10^4 terms differ by
 # up to log2(terms) ulps, about 1e-6 relative; the per-cell multipliers
@@ -1604,9 +1851,11 @@ def multi_rank_path(tmp, smi, argv=(), kernel=True, **cfg_kw):
     file left; the 2-rank run goes on to 1902 with a checkpoint a year,
     and 1902 resumed by 2 ranks from the 1901 checkpoint is bitwise it; a
     1-rank restore of that checkpoint raises.  Then at LOOP_GRID_DEG
-    degrees ``ensemble --shard --members 8``, ``assimilate --shard
-    --members 16 --days 5`` (bitwise) and ``calibrate --per-cell --shard
-    --days 2 --steps 2`` (LOOP_FIT_RTOL) as 2 ranks against one process.
+    degrees and LOOP_FIT_NISURF substeps (as phase 18's command legs: the
+    plain days of the twin and the fit are host-bound) ``ensemble --shard
+    --members 8``, ``assimilate --shard --members 16 --days 3`` (bitwise)
+    and ``calibrate --per-cell --shard --days 1 --steps 2``
+    (LOOP_FIT_RTOL) as 2 ranks against one process.
     ``cfg_kw``, ``argv`` and ``kernel=False`` (no launch expected) are for
     rehearsals on the CPU.  Returns the phase's summary."""
     def config(name, **kw):
@@ -1705,7 +1954,8 @@ def multi_rank_path(tmp, smi, argv=(), kernel=True, **cfg_kw):
     # full width and times them).
     groups, outs = [], {}
     for n in (1, 2):
-        out = config(f"loop{n}", resolution_deg=LOOP_GRID_DEG)
+        out = config(f"loop{n}", resolution_deg=LOOP_GRID_DEG,
+                     nisurf=LOOP_FIT_NISURF)
         files = [os.path.join(tmp, f"loop{n}_{k}") for k in
                  ("ensemble.nc", "enkf.npz", "fit.npz")]
         shard = ["--shard"] if n == 2 else []
@@ -1758,7 +2008,7 @@ def multi_rank_path(tmp, smi, argv=(), kernel=True, **cfg_kw):
 #: the arguments of each leg (``python -m hybrid9_tpu_torch.scripts.<name>``)
 #: and the day-kernel launches it must make.
 STUDY_YEARS = 2
-STUDY_ITERS = 20
+STUDY_ITERS = 10
 STUDY_DA_DAYS = 2
 ZD09_DEBUG_DAYS = 10
 # The hydrology day's outputs among ``day_step``'s diagnostics.
@@ -1906,7 +2156,7 @@ def study_path(tmp, dev, smi):
     one after another so that each leg's times are its own:
     ``flagship_soak --years 2`` (every year clean), ``flagship_run
     --years 2`` (two annual files, the worst residual under 0.1 mm),
-    ``router_compare --iters 20 --soak-years 1`` (ms a day per scheme,
+    ``router_compare --iters 10 --soak-years 1`` (ms a day per scheme,
     each soak clean), ``da_soak --resolution 0.25 --days 2`` (16 members
     of the 0.25-degree grid folded into one launch a day) and
     ``zd09_drift --ks 1,8 --years 2 --scope reference`` (the JSON written,
@@ -2443,6 +2693,343 @@ def slab_loop_path(tmp, flag, dev, smi, kernel=True, **cfg_kw):
     out["timed"] = timed
     return out
 
+#: Phase 3's layer counts without a build of their own, held on
+#: day_kernel_any alone; it is held at FIXED_NLS too, and the edge states
+#: at EDGE_NLS through both instances where the count has a build.
+LAYER_COUNTS = (3, 4, 5, 10, 15, 32)
+EDGE_NLS = (8, 10, 20)
+#: At this many layers or fewer, 5-7 % of the float32 varied columns end
+#: their day within KNIFE_EDGE_M of the base of the thick bottom layer,
+#: above MAX_KNIFE_EDGE_SHARE: float32 is held on the reference states.
+COARSE_NL = 5
+#: day_kernel_any past the counts the checks hold cell by cell: launched
+#: in both dtypes, finite and conserving (its thin layers put a tenth of
+#: the float64 varied columns on knife edges of their own).
+WIDE_NL = 64
+HOT_DAYS = 730
+
+
+def regimes_at(nl):
+    """CHECK_REGIMES at ``nl`` layers: the float32 varied columns only
+    above COARSE_NL layers (the float32 reference states hold below)."""
+    return tuple((d, r) for d, r in CHECK_REGIMES
+                 if not (d == torch.float32 and r == "varied_off_interfaces"
+                         and nl <= COARSE_NL))
+
+
+def layer_count_checks(dev, n=N_CHECK):
+    """The layer counts of phase 3 without a build of their own:
+    ``day_kernel_any`` against the plain twin at LAYER_COUNTS
+    (``zd09_every=8``, with and without imp; at FIXED_NLS phase 3's first
+    checks hold it beside the fixed builds): float64 on the varied
+    columns at F64_TOL, float32 on the varied columns off the interfaces
+    at F32_TOL with the cells :func:`check_kernel` sets aside for it, or
+    on the reference states at COARSE_NL layers and fewer; each count's
+    residency; the edge states with imp at EDGE_NLS through both
+    instances where the count has a build of its own
+    (tests/test_torch_cuda.py runs both imp flags and both zd09_every);
+    WIDE_NL layers in both dtypes (finite, the water balance); and a count
+    below ``MIN_NL`` or above ``layer_cap`` refused before any launch.
+    Returns the summary."""
+    out = dict(counts={}, edge={}, residency={}, wide={})
+    lib = kernels.day_kernel_lib()
+    for nl in LAYER_COUNTS:
+        for dtype, regime in ((torch.float64, "varied"),
+                              (torch.float32, "reference" if nl <= COARSE_NL
+                               else "varied_off_interfaces")):
+            case = check_case(n, nl, dtype, dev, regime)
+            name = str(dtype)[6:]
+            for use_imp in (False, True):
+                label = (f"check {name} {regime} nl={nl} zd09_every=8 "
+                         f"imp={use_imp}, day_kernel_any")
+                err, res, n_edge = check_kernel(label, case, regime, 8,
+                                                use_imp, instances=(True,))
+                out["counts"][f"{name} nl={nl} imp={use_imp}"] = dict(
+                    max_abs_err=err, max_residual=res, set_aside=n_edge)
+                print(f"{label}: ok, max|kernel-twin| h2osoi {err:.3e} mm, "
+                      f"max residual {res:.3e} mm, {n_edge} cells set aside")
+    for nl in LAYER_COUNTS + day_kernel.FIXED_NLS:
+        for dtype in (torch.float32, torch.float64):
+            sms, blocks, threads, nbytes = day_kernel.instance_residency(
+                lib, dtype, nl, True, any_nl=True)
+            out["residency"][f"{str(dtype)[6:]} nl={nl}"] = dict(
+                resident_blocks_per_sm=blocks, threads_per_block=threads,
+                shared_bytes_per_block=nbytes,
+                rounds_at_flagship_cells=day_kernel.rounds(
+                    N_FLAGSHIP, sms, blocks, threads))
+    for nl in EDGE_NLS:
+        instances = (False, True) if nl in day_kernel.FIXED_NLS else (True,)
+        for dtype in (torch.float32, torch.float64):
+            case = check_case(EDGE_COLUMNS * len(EDGE_FORCINGS), nl, dtype,
+                              dev, "edge")
+            for use_imp in (True,):
+                label = (f"check {str(dtype)[6:]} edge nl={nl} zd09_every=8 "
+                         f"imp={use_imp}, any_nl in {instances}")
+                err, res, n_edge = check_kernel(label, case, "edge", 8,
+                                                use_imp, instances)
+                out["edge"][f"{str(dtype)[6:]} nl={nl} imp={use_imp}"] = \
+                    dict(max_abs_err=err, max_residual=res,
+                         set_aside=n_edge)
+                print(f"{label}: ok, max|kernel-twin| h2osoi {err:.3e} mm, "
+                      f"max residual {res:.3e} mm, {n_edge} of "
+                      f"{case[0].zwt.numel()} cells set aside")
+    for dtype in (torch.float32, torch.float64):
+        soil, veg, params, forcing, geom, imp = check_case(
+            n, WIDE_NL, dtype, dev, "varied")
+        soil1, diags = day_kernel.hydrology_day_cuda(
+            soil, veg, params, forcing, geom, 1800.0, 48, imp=imp,
+            zd09_every=8)
+        label = f"{WIDE_NL} layers, {str(dtype)[6:]}"
+        _all_finite(label, list(diags.items())
+                    + [("h2osoi_liq", soil1.h2osoi_liq), ("zwt", soil1.zwt),
+                       ("smp", soil1.smp), ("wa", soil1.wa)])
+        res = float(diags["max_abs_residual"].max())
+        if not res < MAX_RESIDUAL_MM:
+            raise RuntimeError(f"{label}: residual {res} mm")
+        _, blocks, threads, nbytes = day_kernel.instance_residency(
+            lib, dtype, WIDE_NL, True)
+        out["wide"][str(dtype)[6:]] = dict(
+            nl=WIDE_NL, max_residual=res, resident_blocks_per_sm=blocks,
+            threads_per_block=threads, shared_bytes_per_block=nbytes)
+        print(f"{label}: day_kernel_any finite, max residual {res:.3e} mm, "
+              f"{threads} threads and {nbytes} shared bytes a block, "
+              f"{blocks} blocks an SM")
+    before = day_kernel.launches
+    soil, veg, params, forcing, geom, _ = check_case(64, 2, torch.float32,
+                                                     dev, "reference")
+    refused = []
+    for call in (
+            lambda: day_kernel.hydrology_day_cuda(soil, veg, params, forcing,
+                                                  geom, 1800.0, 48),
+            lambda: day_kernel.kernel_instance(
+                torch.float32, day_kernel.layer_cap(torch.float32) + 1),
+            lambda: day_kernel.kernel_instance(
+                torch.float64, day_kernel.layer_cap(torch.float64) + 1)):
+        try:
+            call()
+        except ValueError as e:
+            refused.append(str(e))
+        else:
+            raise RuntimeError("a layer count the kernel does not take "
+                               "was not refused")
+    if day_kernel.launches != before:
+        raise RuntimeError("a refused layer count launched the kernel")
+    out["refused"] = refused
+    print("refused before any launch: " + "; ".join(refused))
+    return out
+
+
+def hot_climate(dev):
+    """The hot climate of tests/test_run_e2e.py::test_hot_climate_stability
+    on the kernel: two years at 318 K and pr = 3e-4 on 64 reference cells
+    in float32 through ``day_step`` (one launch a day): the state finite,
+    plant mass and root depth positive, every day's residual under
+    MAX_RESIDUAL_MM.  Returns the summary."""
+    case = build_reference_case(64, device=dev)
+    hot = case.forcing.replace(tas=torch.full_like(case.forcing.tas, 318.0),
+                               pr=torch.full_like(case.forcing.pr, 3.0e-4))
+    state, cfg = case.state, case.cfg
+    worst = torch.zeros_like(state.soil.zwt[0])
+    day_kernel.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(HOT_DAYS):
+        state, diags = day_step(state, hot, case.params, case.geom, cfg.dt,
+                                cfg.nisurf, use_kernel=True)
+        worst = torch.maximum(worst, diags["max_abs_residual"].max())
+    launches = day_kernel.launches
+    seconds = time.perf_counter() - t0
+    _all_finite("hot climate", [(f"state[{i}]", x) for i, x in
+                                enumerate(_state_leaves(state))])
+    out = dict(days=HOT_DAYS, launches=launches, seconds=seconds,
+               max_residual=float(worst),
+               min_plant_mass=float(state.veg.plant_mass.min()),
+               min_rdepth=float(state.veg.rdepth.min()))
+    if launches != HOT_DAYS or not out["max_residual"] < MAX_RESIDUAL_MM \
+            or not (out["min_plant_mass"] > 0 and out["min_rdepth"] > 0):
+        raise RuntimeError(f"hot climate: {out}")
+    print(f"hot climate, {HOT_DAYS} days at 318 K on 64 cells: "
+          + json.dumps(out))
+    return out
+
+
+#: Phase 19: the layer count and year of the 10-layer global run.
+LAYER_YEAR_NL = 10
+LAYER_YEAR = 1901
+LAYER_CHECK_DAYS = 30
+
+
+def layer_year_path(tmp, dev, smi, flag_winter, argv=(),
+                    resolution_deg=0.5, **cfg_kw):
+    """Phase 19, a global year at LAYER_YEAR_NL layers through the command
+    line: a raw soil archive of that many layers at ``resolution_deg``
+    (``synthesize_raw_soil_archive``, factor 2: NetCDF-3 without h5py),
+    ``prep-soil --layers 10``, then ``run --config run10.json --years
+    1901 1901`` with ``Config()`` on ``exponential_interfaces(10)`` and the
+    prepared file (forcing on the card, as phase 10's): every day one
+    launch of ``day_kernel_any``, the annual file and every day's residual
+    checked.  Then, in this process on the same soil: 30 days from 1
+    January through ``block_step``, the kernel against the twin on the
+    winter state they end in (day 31, imp and sw_abs; the cells of
+    :func:`knife_edge_cells`, :func:`float32_noise_cells` and
+    :func:`rounding_explained` set aside); the kernel's ms there
+    against the fixed nl=8 build's and ``day_kernel_any``'s at nl=8 on the
+    flagship winter state ``flag_winter`` (``(args, kw)`` of phase 6's
+    winter day), in turns; the bound by operations; and 5 days of
+    ``block_step(devices=[dev] * 3)``, bitwise the unsharded block with 3
+    launches a day.  ``argv`` and ``cfg_kw`` are for rehearsals on a small
+    grid.  Returns the summary."""
+    t0 = time.perf_counter()
+    arch = synthesize_raw_soil_archive(
+        os.path.join(tmp, "raw"), resolution_deg=resolution_deg, factor=2,
+        n_layers=LAYER_YEAR_NL)
+    soil_path = os.path.join(tmp, f"soil{LAYER_YEAR_NL}.nc")
+    _run_cli(["prep-soil", "--hwsd", arch["hwsd"], "--bnu-dir",
+              arch["bnu_dir"], "--fmax", arch["fmax"], "--out", soil_path,
+              "--layers", str(LAYER_YEAR_NL)], "prep-soil")
+    prep_s = time.perf_counter() - t0
+    layer_kw = dict(zi_mm=tuple(exponential_interfaces(LAYER_YEAR_NL)),
+                    soil_source="netcdf", soil_path=soil_path,
+                    resolution_deg=resolution_deg, **cfg_kw)
+    log = YearLog()
+    logger = logging.getLogger("hybrid9_tpu_torch")
+    logger.addHandler(log)
+    try:
+        wall, launches, years, out = run_years(
+            tmp, f"year{LAYER_YEAR_NL}", log,
+            ["--years", str(LAYER_YEAR), str(LAYER_YEAR), *argv],
+            forcing="device-synthetic", start_year=LAYER_YEAR,
+            end_year=LAYER_YEAR, **layer_kw)
+    finally:
+        logger.removeHandler(log)
+    ndays = calendar.days_in_year(LAYER_YEAR)
+    if launches != ndays or len(years) != 1:
+        raise RuntimeError(f"{LAYER_YEAR_NL}-layer year: {launches} kernel "
+                           f"launches, years {years}")
+    init = read_grid_file(os.path.join(out, "init_diagnostics.nc"),
+                          ["land_mask", "theta_s"])
+    land = init["land_mask"] == 1.0
+    file_res, theta_min, theta_max = check_annual_file(
+        f"{LAYER_YEAR_NL}-layer axy{LAYER_YEAR}.nc",
+        os.path.join(out, f"axy{LAYER_YEAR}.nc"), land, init["theta_s"])
+    year = years[0]
+    if not year["max_residual_mm"] < MAX_RESIDUAL_MM:
+        raise RuntimeError(f"{LAYER_YEAR_NL}-layer year: residual "
+                           f"{year['max_residual_mm']} mm")
+    print(f"{LAYER_YEAR_NL}-layer year {LAYER_YEAR} through the command line "
+          f"({int(land.sum())} land cells): {launches} kernel launches, "
+          f"{year['seconds']:.3f} s in run_year ({wall:.2f} s wall), worst "
+          f"daily residual {year['max_residual_mm']:.3e} mm, theta "
+          f"[{theta_min:.4f}, {theta_max:.4f}]; archive and prep-soil "
+          f"{prep_s:.1f} s ({smi})")
+
+    # The same soil in this process: 30 days to the winter state.
+    cfg = Config(output_path=os.path.join(tmp, "check"), **layer_kw)
+    dtype = getattr(torch, cfg.dtype)
+    grid, params = load_soil(cfg, dtype, dev)
+    sim = Simulation(cfg, params, land_grid=grid)
+    n = sim.n
+    if len(sim.geom.dz_soil) != LAYER_YEAR_NL or \
+            sim.use_kernel != (dev.type == "cuda"):
+        raise RuntimeError(f"{LAYER_YEAR_NL}-layer Simulation: "
+                           f"{len(sim.geom.dz_soil)} layers, use_kernel="
+                           f"{sim.use_kernel}")
+    lat = grid.cell_lat
+    block = Forcing.from_numpy(
+        synthetic_forcing_block(LAYER_CHECK_DAYS, n, seed=1, start_doy=1,
+                                lat=lat), dtype, dev)
+    acc0 = AnnualAccumulators.zeros(n, dtype, dev, nsoil=LAYER_YEAR_NL)
+    run = dict(params=sim.params, geom=sim.geom, dt=cfg.dt,
+               nisurf=cfg.nisurf)
+    winter, _ = block_step(sim.state, acc0, block, **run,
+                           **sim.step_kwargs())
+    f31 = Forcing.from_numpy(
+        synthetic_forcing_day(n, 1 + LAYER_CHECK_DAYS, seed=1, lat=lat),
+        dtype, dev)
+    args = (winter.soil, winter.veg, sim.params, f31, sim.geom, cfg.dt,
+            cfg.nisurf)
+    kw = dict(imp=freeze_impedance_from_ice(winter.soil.h2osoi_liq,
+                                            winter.h2osoi_ice),
+              sw_abs=snow_absorptivity(winter.swe, *sim.snow_albedo),
+              zd09_every=cfg.zd09_every)
+    want = day_kernel.hydrology_day_plain(*args, **kw)
+    got = day_kernel.hydrology_day_cuda(*args, **kw)
+    edge = knife_edge_cells(*args[:5], want, **kw)
+    edge |= float32_noise_cells(*args[:5], want, **kw)
+    edge |= rounding_explained(got, want, *args[:5], ~edge, **kw)
+    if int(edge.sum()) > MAX_KNIFE_EDGE_SHARE * n:
+        raise RuntimeError(f"{LAYER_YEAR_NL}-layer winter state: "
+                           f"{int(edge.sum())} of {n} cells set aside")
+    err = check_day(f"{LAYER_YEAR_NL}-layer kernel vs twin, winter state",
+                    got, want, sim.params.bsw, ~edge)[0]
+    print(f"{LAYER_YEAR_NL}-layer kernel vs twin, {n} cells, winter state "
+          f"(day {1 + LAYER_CHECK_DAYS}, imp and sw_abs): ok, max|kernel-"
+          f"twin| h2osoi {err:.3e} mm ({int(edge.sum())} cells set aside)")
+
+    # Times in turns: day_kernel_any at nl=10 here, the fixed nl=8 build
+    # and day_kernel_any at nl=8 on the flagship winter state.
+    f_args, f_kw = flag_winter
+    forms = dict(
+        any_nl10=lambda: day_kernel.hydrology_day_cuda(
+            *args, **kw)[0].h2osoi_liq,
+        fixed_nl8=lambda: day_kernel.hydrology_day_cuda(
+            *f_args, **f_kw)[0].h2osoi_liq,
+        any_nl8=lambda: day_kernel.hydrology_day_cuda(
+            *f_args, any_nl=True, **f_kw)[0].h2osoi_liq)
+    times = {k: [] for k in forms}
+    for order in (list(forms), list(forms)[::-1]):
+        for k in order:
+            times[k].append(_time_cuda(forms[k], 20))
+    ms = {k: float(np.mean([t[0] for t in v])) for k, v in times.items()}
+    plain_ms = _time_cuda(lambda: day_kernel.hydrology_day_plain(
+        *args, **kw)[0].h2osoi_liq, 1)[0]
+    bound = day_bound(args, kw["imp"], cfg.zd09_every)
+    lib = kernels.day_kernel_lib()
+    sms, blocks, threads, nbytes = day_kernel.instance_residency(
+        lib, dtype, LAYER_YEAR_NL, True) if dev.type == "cuda" else \
+        (0, 0, 0, 0)
+    print(f"{LAYER_YEAR_NL}-layer kernel day: {ms['any_nl10']:.3f} ms "
+          f"({n} cells, winter state); on the flagship winter state the "
+          f"fixed nl=8 build {ms['fixed_nl8']:.3f} ms, day_kernel_any at "
+          f"nl=8 {ms['any_nl8']:.3f} ms; plain twin {plain_ms:.1f} ms; "
+          f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}; "
+          f"{blocks} blocks of {threads} threads an SM ({smi}); passes: "
+          + json.dumps(times))
+
+    # The resident slabs at nl=10: bitwise the unsharded block.
+    short = block.map(lambda x: x[:SLAB_DAYS])
+    k = 3
+    day_kernel.launches = 0
+    got = block_step(sim.state, acc0, short, **run,
+                     **dict(sim.step_kwargs(), devices=[dev] * k))
+    slab_launches = day_kernel.launches
+    whole = block_step(sim.state, acc0, short, **run, **sim.step_kwargs())
+    _leaves_equal(f"{LAYER_YEAR_NL}-layer block on {k} slabs",
+                  _state_leaves(got[0]) + _state_leaves(got[1]),
+                  _state_leaves(whole[0]) + _state_leaves(whole[1]))
+    if dev.type == "cuda" and slab_launches != SLAB_DAYS * k:
+        raise RuntimeError(f"{LAYER_YEAR_NL}-layer slabs: {slab_launches} "
+                           f"launches in {SLAB_DAYS} days of {k} slabs")
+    print(f"{LAYER_YEAR_NL}-layer block on {k} slabs of the card, "
+          f"{SLAB_DAYS} days: {slab_launches} launches, bitwise the "
+          f"unsharded block")
+    return dict(nl=LAYER_YEAR_NL, cells=n, land_cells=int(land.sum()),
+                launches=launches, year_s=year["seconds"], wall_s=wall,
+                max_residual=year["max_residual_mm"],
+                file_max_residual=file_res, prep_s=prep_s,
+                max_abs_err=err, set_aside=int(edge.sum()), ms=ms["any_nl10"],
+                fixed_nl8_ms=ms["fixed_nl8"], any_nl8_ms=ms["any_nl8"],
+                plain_ms=plain_ms, bound_ms=bound["bound_ms"],
+                bound_by=bound["bound_by"],
+                arithmetic_per_cell_day=bound["arithmetic_per_cell_day"],
+                transcendental_per_cell_day=bound[
+                    "transcendental_per_cell_day"],
+                resident_blocks_per_sm=blocks, threads_per_block=threads,
+                shared_bytes_per_block=nbytes,
+                rounds=day_kernel.rounds(n, sms, blocks, threads)
+                if blocks else None,
+                slab_launches=slab_launches, slabs=k,
+                slabs_bitwise_unsharded=True)
+
 
 def main() -> None:
     # 1. Device.
@@ -2458,6 +3045,13 @@ def main() -> None:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
     dev = torch.device("cuda", 0)
+    clock, phase_s = [time.perf_counter()], {}
+
+    def lap(phase):
+        """Seconds since the last lap, under ``phase``."""
+        now = time.perf_counter()
+        phase_s[phase] = round(now - clock[0], 1)
+        clock[0] = now
 
     # 2. Build.
     t0 = time.perf_counter()
@@ -2469,28 +3063,43 @@ def main() -> None:
     ptxas = _ptxas_summary(info.get("log", ""))
     lib = kernels.day_kernel_lib()
     for p in ptxas:
+        # day_kernel_any's residency at the 10-layer year's count.
         sms, blocks, threads, nbytes = day_kernel.instance_residency(
             lib, torch.float32 if p["dtype"] == "f32" else torch.float64,
-            p["nl"], p["imp"])
+            p["nl"] or LAYER_YEAR_NL, p["imp"], any_nl=p["nl"] is None)
         p.update(sms=sms, resident_blocks_per_sm=blocks,
                  threads_per_block=threads, shared_bytes_per_block=nbytes,
                  rounds_at_flagship_cells=day_kernel.rounds(
                      N_FLAGSHIP, sms, blocks, threads))
         print("ptxas: " + json.dumps(p))
 
-    # 3. Kernel against plain twin.
+    lap("1-2")
+
+    # 3. Kernel against plain twin: the fixed builds on every regime but
+    # the edge states, then day_kernel_any at every layer count, the edge
+    # states on both, and the hot climate.
     for dtype, regime in CHECK_REGIMES:
-        for nl in (8, 20):
+        if regime == "edge":
+            continue
+        for nl in day_kernel.FIXED_NLS:
             case = check_case(N_CHECK, nl, dtype, dev, regime)
             for k in (1, 8):
                 for use_imp in (False, True):
                     label = (f"check {str(dtype)[6:]} {regime} nl={nl} "
                              f"zd09_every={k} imp={use_imp}")
-                    err, res, n_edge = check_kernel(label, case, regime, k,
-                                                    use_imp)
+                    err, res, n_edge = check_kernel(
+                        label, case, regime, k, use_imp,
+                        (None, True) if k == 8 else (None,))
                     print(f"{label}: ok, max|kernel-twin| h2osoi "
                           f"{err:.3e} mm, max residual {res:.3e} mm, "
                           f"{n_edge} knife-edge cells")
+    t0 = time.perf_counter()
+    layers = layer_count_checks(dev)
+    hot = hot_climate(dev)
+    print(f"phase 3, layer counts, edge states and hot climate: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    lap("3")
 
     # 4. Reference-scope path: first the kernel against its twin at that
     # path's shapes and inputs.
@@ -2536,6 +3145,8 @@ def main() -> None:
     print(f"reference path vs plain twin, 3 days: ok, max|diff| h2osoi "
           f"{err:.3e} mm")
 
+    lap("4")
+
     # 5. Timing at N_CELLS (plain, kernel, kernel, plain).
     times = dict(kernel=[], plain=[])
     for which in ("plain", "kernel", "kernel", "plain"):
@@ -2562,6 +3173,8 @@ def main() -> None:
     timing("plain-twin day", ref_plain_ms, N_CELLS, ref_what)
     timing("day_step with kernel", step_ms, N_CELLS, ref_what)
     print("timing passes (event ms, wall ms): " + json.dumps(times))
+
+    lap("5")
 
     # 6. Flagship path, the main path.
     t0 = time.perf_counter()
@@ -2703,6 +3316,8 @@ def main() -> None:
           f"({first_focus[1]} cells), {winter_focus[0]:.3e} m on the winter "
           f"state ({winter_focus[1]} cells off knife edges)")
 
+    lap("6")
+
     # 7. Sharded launcher: bitwise the unsharded kernel, and against its
     # plain version.
     sharded_err = 0.0
@@ -2738,6 +3353,8 @@ def main() -> None:
                                f"bitwise the unsharded path's")
     print(f"sharded flagship path: {SHARDED_DAYS} days x {SLABS} slabs, "
           f"{sharded_launches} launches, bitwise the unsharded path")
+
+    lap("7")
 
     # 8. Timing at the flagship shapes, on the winter state and, for the
     # kernel, on the first day's state too (the kernel's branches make its
@@ -2819,43 +3436,72 @@ def main() -> None:
     print("kernel day with imp by cell count, first day's state, ms "
           f"({smi}): " + json.dumps(by_count))
 
+    lap("8")
+
     # 9. The bound of the flagship day on this card.
     bound = day_bound(winter_args, imp, fcfg.zd09_every)
     print("bound of the flagship kernel day: " + json.dumps(bound))
+
+    lap("9")
 
     # 10. The year loop at full width, through the command line.
     with tempfile.TemporaryDirectory() as tmp:
         year = year_path(tmp, dev, smi)
 
+    lap("10")
+
     # 11. The switches of Config at full width.
     switches = switch_paths(flag, fblock, f31, smi)
+
+    lap("11")
 
     # 12. The carbon spin-up, and 13. site mode, through the command line.
     with tempfile.TemporaryDirectory() as tmp:
         spin = spinup_path(tmp, smi)
         site = site_path(tmp, smi)
 
+    lap("12-13")
+
     # 14. The closed loop: ensemble, assimilation, calibration.
     with tempfile.TemporaryDirectory() as tmp:
         loop = closed_loop_path(tmp, dev, smi)
+
+    lap("14")
 
     # 15. Several processes on the card: run --shard as 1, 2 and 4 ranks.
     with tempfile.TemporaryDirectory() as tmp:
         ranks = multi_rank_path(tmp, smi)
 
+    lap("15")
+
     # 16. The study programs, each in a child process.
     with tempfile.TemporaryDirectory() as tmp:
         study = study_path(tmp, dev, smi)
 
+    lap("16")
+
     # 17. Device slabs of one process: the resident path.
     with tempfile.TemporaryDirectory() as tmp:
         slab = slab_path(tmp, flag, fblock, winter, dev, smi)
+
+    lap("17")
 
     # 18. The closed loop and the spin-up on device slabs of one process.
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         slab_loop = slab_loop_path(tmp, flag, dev, smi)
         print(f"phase 18: {time.perf_counter() - t0:.1f} s ({smi})")
+
+    lap("18")
+
+    # 19. A global year at 10 layers through the command line.
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        layer_year = layer_year_path(tmp, dev, smi, (winter_args, winter_kw))
+        print(f"phase 19: {time.perf_counter() - t0:.1f} s ({smi})")
+
+    lap("19")
+    print(f"phase seconds ({smi}): " + json.dumps(phase_s))
 
     common = dict(route="cuda",
                   source="hybrid9_tpu_torch/csrc/day_kernel.cu",
@@ -2936,7 +3582,29 @@ def main() -> None:
                                   slab_loop["spinup"].items()},
                  ensemble_days=LOOP_ENS_DAYS, da_cycles=LOOP_DA_CYCLES,
                  fit_max_rel_err=slab_loop["fit"]["max_rel_err"],
-                 bitwise_unsharded=True)),
+                 bitwise_unsharded=True),
+             layer_counts=dict(
+                 name="day_kernel_any", nl=LAYER_YEAR_NL,
+                 cells=layer_year["cells"],
+                 launches=layer_year["launches"],
+                 max_abs_err=layer_year["max_abs_err"],
+                 ms=layer_year["ms"], plain_ms=layer_year["plain_ms"],
+                 bound_ms=layer_year["bound_ms"],
+                 bound_by=layer_year["bound_by"], library_ms=None,
+                 fixed_nl8_ms=layer_year["fixed_nl8_ms"],
+                 any_nl8_ms=layer_year["any_nl8_ms"],
+                 year_s=layer_year["year_s"],
+                 max_residual=layer_year["max_residual"],
+                 rounds=layer_year["rounds"],
+                 slab_launches=layer_year["slab_launches"],
+                 slabs_bitwise_unsharded=True,
+                 checks_max_abs_err={k: v["max_abs_err"] for k, v in
+                                     layers["counts"].items()},
+                 edge_max_abs_err={k: v["max_abs_err"] for k, v in
+                                   layers["edge"].items()},
+                 residency=layers["residency"],
+                 hot_climate=dict(launches=hot["launches"],
+                                  max_residual=hot["max_residual"]))),
         dict(common, name="hydrology_day_sharded",
              replaces="hybrid9_tpu/physics/pallas_day.py:220",
              launches=sharded_launches, max_abs_err=sharded_err,

@@ -61,7 +61,8 @@
 // every loop unrolled and the state in registers (255, with spills; 8 warps
 // an SM) and stage the parameter rows, at nl=8 the imp row too: rolled,
 // they need so much shared memory that 2-6 warps an SM remain, which
-// measured slower at 33,792 cells.
+// measured slower at 33,792 cells.  Every other layer count runs on
+// day_kernel_any, whose layer count is a run-time argument (below).
 //
 // Built by hybrid9_tpu_torch/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -1073,43 +1074,866 @@ int with_instance(int dtype_bytes, int nl, int with_imp, F f) {
   return -1;
 }
 
+// ---------------------------------------------------------------------------
+// The instance for any layer count.
+//
+// The Pallas kernel takes any nl (pallas_day.py:156 reads it from the
+// state's shape); the instances above are built for nl = 8 and 20 only.
+// day_kernel_any takes nl as a run-time argument, one build per dtype and
+// imp flag, and serves every other layer count from 3 up (infiltration
+// reads the top three layers, as in the JAX package), and nl = 8 or 20
+// where the caller asks for it.  It is the same day, step for step in the
+// twin's order, with every layer loop rolled:
+//  - every vector of a thread lives in dynamic shared memory, laid out
+//    [slot][thread] as in the rolled builds: the parameter and root rows (and
+//    the imp row), the cached zq and sy, the lagged smp, theta (in the slots
+//    of r), the bands, the solve's scratch and h: 16 nl + 4 words a thread,
+//    nl more with imp;
+//  - the geometry comes in as the doubles zi[nl + 2], dz[nl], zc[nl] on the
+//    device; each block forms the derived entries in double, rounds each
+//    once and keeps them in shared memory (8 nl + 4 words a block), as the
+//    host forms them for the fixed instances;
+//  - a block holds one warp where that fits a block's shared memory, else
+//    16, 8, ... threads (AnyInstance::threads); past one thread the layer
+//    count is refused (the wrapper names the cap: some 1,160 layers in
+//    float64 and 2,320 in float32);
+//  - rows [n, nl] are read and written one element at a time, so a row may
+//    start on any element: slab views x[lo:hi] of a [n, 10] float32 tensor
+//    start on 8-byte addresses half the time.
+// What bounds it is what bounds the rolled builds, a cell's dependent chain,
+// with fewer warps an SM than the main-path build (9 at nl = 10 in float32
+// with imp, so the 0.5-degree grid takes two rounds): PERF.md, section 6.
+// ---------------------------------------------------------------------------
+
+template <typename Real>
+struct ArgsAny {
+  const Real* in[N_IN];
+  Real* out[N_OUT];
+  int stride[N_IN];    // elements from one cell to the next, per input
+  const double* geom;  // zi[nl + 2], dz[nl], zc[nl] in mm, on the device
+  double dt;
+  int nl;
+  int n;
+  int nisurf;
+  int zd09_every;
+  int focus;           // the focus cell, or -1 for none
+  Real* wt_trace;      // [nisurf]: the focus cell's zwt after each substep
+};
+
+// Words of shared memory: the block's geometry, and each thread's vectors.
+constexpr int any_geom_words(int nl) { return 8 * nl + 4; }
+constexpr int any_thread_words(int nl, bool with_imp) {
+  return 16 * nl + 4 + (with_imp ? nl : 0);
+}
+
+// The block's geometry in shared memory, each entry rounded once from its
+// double value (the fields of Geom).
+template <typename Real>
+struct GeomAny {
+  const Real* zi;     // [nl + 2] interface depths (mm)
+  const Real* zi_m;   // [nl + 2] zi / 1000 (m)
+  const Real* dzi;    // [nl] zi[i+1] - zi[i]
+  const Real* dz;     // [nl] layer thickness (mm)
+  const Real* thden;  // [nl] dz * RHOW / 1e3
+  const Real* dz_dt;  // [nl] dz / dt
+  const Real* zc;     // [nl] node depths (mm)
+  const Real* dzc;    // [nl] zc[i+1] - zc[i], i < nl - 1
+};
+
+// n values of one thread in its shared-memory slots p, p + stride, ...
+template <typename Real>
+struct VecAny {
+  Real* p;
+  int stride;
+  __device__ __forceinline__ Real get(int i) const { return p[i * stride]; }
+  __device__ __forceinline__ void set(int i, Real x) const {
+    p[i * stride] = x;
+  }
+};
+
+// soilwater.water_table_index over nl interfaces.
+template <typename Real>
+__device__ __forceinline__ int water_table_index_any(
+    Real zwt, const GeomAny<Real>& g, int nl) {
+  int jwt = 0;
+  for (int i = 1; i <= nl; ++i) jwt += (zwt > g.zi_m[i]) ? 1 : 0;
+  return jwt;
+}
+
+// soilwater._equilibrium_profile, one layer (equilibrium_zq's body).
+template <typename Real>
+__device__ __forceinline__ Real equilibrium_zq_any(int i, Real zwtmm, Real ts,
+                                                   Real ps, Real bs,
+                                                   const GeomAny<Real>& g) {
+  const Real one = Real(1);
+  const Real zlo = g.zi[i], zhi = g.zi[i + 1];
+  const bool mask_sat = zwtmm <= zlo;
+  const bool mask_in = (zwtmm < zhi) && (zwtmm > zlo);
+  const Real expo = one - one / bs;
+  const Real neg_psi = -ps;
+  Real vol_eq;
+  if (mask_sat) {
+    vol_eq = ts;
+  } else {
+    const Real temp0_lo = pw((neg_psi + zwtmm - zlo) / neg_psi, expo);
+    if (mask_in) {
+      const Real voleq1 =
+          ps * ts / (one - one / bs) / (zwtmm - zlo) * (one - temp0_lo);
+      const Real vol_in =
+          (voleq1 * (zwtmm - zlo) + ts * (zhi - zwtmm)) / g.dzi[i];
+      vol_eq = vmax(vmin(ts, vol_in), Real(0));
+    } else {
+      const Real base_hi = (neg_psi + zwtmm - zhi) / neg_psi;
+      const Real vol_below = ps * ts / (one - one / bs) / g.dzi[i] *
+                             (pw(base_hi, expo) - temp0_lo);
+      vol_eq = vmin(ts, vmax(vol_below, Real(0)));
+    }
+  }
+  const Real zq = ps * pw(vmax(vol_eq / ts, Real(0.01)), -bs);
+  return vmax(Real(SMPMIN), zq);
+}
+
+// soilwater._aquifer_zq: zero unless the table is below the column.
+template <typename Real>
+__device__ __forceinline__ Real aquifer_zq_any(Real zwtmm, int jwt, Real tsl,
+                                               Real psl, Real bl,
+                                               const GeomAny<Real>& g,
+                                               int nl) {
+  if (jwt != nl) return Real(0);
+  const Real one = Real(1);
+  const Real temp0_aq =
+      pw((-psl + zwtmm - g.zi[nl]) / (-psl), one - one / bl);
+  Real vol_aq =
+      psl * tsl / (one - one / bl) / (zwtmm - g.zi[nl]) * (one - temp0_aq);
+  vol_aq = vmin(tsl, vmax(vol_aq, Real(0)));
+  return vmax(Real(SMPMIN), psl * pw(vmax(vol_aq / tsl, Real(0.01)), -bl));
+}
+
+template <typename Real, bool WITH_IMP>
+__global__ void __launch_bounds__(BLOCK, 1)
+    day_kernel_any(const ArgsAny<Real> args) {
+  extern __shared__ __align__(16) unsigned char h9_shared[];
+  const int nl = args.nl;
+  const int M = nl + 1;  // unknowns: the layers and the aquifer
+  const int T = blockDim.x;
+
+  // The block's geometry, formed in double and rounded once, before any
+  // thread of the block returns.
+  Real* const zi = reinterpret_cast<Real*>(h9_shared);
+  Real* const zi_m = zi + nl + 2;
+  Real* const dzi = zi_m + nl + 2;
+  Real* const dz = dzi + nl;
+  Real* const thden = dz + nl;
+  Real* const dz_dt = thden + nl;
+  Real* const zc = dz_dt + nl;
+  Real* const dzc = zc + nl;
+  {
+    const double* zid = args.geom;
+    const double* dzd = zid + nl + 2;
+    const double* zcd = dzd + nl;
+    for (int i = threadIdx.x; i < nl + 2; i += T) {
+      zi[i] = static_cast<Real>(zid[i]);
+      zi_m[i] = static_cast<Real>(zid[i] / 1000.0);
+    }
+    for (int i = threadIdx.x; i < nl; i += T) {
+      dzi[i] = static_cast<Real>(zid[i + 1] - zid[i]);
+      dz[i] = static_cast<Real>(dzd[i]);
+      thden[i] = static_cast<Real>(dzd[i] * RHOW / 1.0e3);
+      dz_dt[i] = static_cast<Real>(dzd[i] / args.dt);
+      zc[i] = static_cast<Real>(zcd[i]);
+      dzc[i] = static_cast<Real>(i + 1 < nl ? zcd[i + 1] - zcd[i] : 0.0);
+    }
+  }
+  __syncthreads();
+  const GeomAny<Real> g{zi, zi_m, dzi, dz, thden, dz_dt, zc, dzc};
+
+  // One cell a thread; the last block masks its ragged tail.
+  const int cell = blockIdx.x * T + threadIdx.x;
+  if (cell >= args.n) return;
+  const Real dt = static_cast<Real>(args.dt);
+  const Real qlim = static_cast<Real>(10.0 / args.dt);
+  const Real one = Real(1), zero = Real(0);
+  const bool cached = args.zd09_every > 1;
+
+  // The thread's vectors, one after another in its slots.
+  Real* next = dzc + nl + threadIdx.x;
+  auto take = [&](int words) -> VecAny<Real> {
+    const VecAny<Real> v{next, T};
+    next += words * T;
+    return v;
+  };
+  const VecAny<Real> p_ts = take(nl);
+  const VecAny<Real> p_bs = take(nl);
+  const VecAny<Real> p_hk = take(nl);
+  const VecAny<Real> p_ps = take(nl);
+  const VecAny<Real> p_rootr = take(nl);
+  const VecAny<Real> p_imp = take(WITH_IMP ? nl : 0);
+  const VecAny<Real> zq = take(nl);
+  const VecAny<Real> sy = take(nl);
+  const VecAny<Real> smp = take(nl);
+  // a[i] and gam[i] are stored at i - 1 (a[0] and gam[0] are never read);
+  // c[nl] is zero and never read.  theta takes the slots of r: a row's
+  // right-hand side is written after the last read of its theta.
+  const VecAny<Real> a = take(nl);
+  const VecAny<Real> b = take(M);
+  const VecAny<Real> c = take(nl);
+  const VecAny<Real> r = take(M);
+  const VecAny<Real> theta = r;
+  const VecAny<Real> gam = take(nl);
+  const VecAny<Real> bet = take(M);
+  const VecAny<Real> dw = take(M);
+  const VecAny<Real> h = take(nl);
+
+  auto at = [&](int k) -> const Real* {
+    return args.in[k] + static_cast<size_t>(cell) * args.stride[k];
+  };
+  auto vec = [&](int k) -> Real { return __ldg(at(k)); };
+
+  // The rows, an element at a time, and the carry.
+  {
+    const Real *r_ts = at(I_TS), *r_bs = at(I_BS), *r_hk = at(I_HK),
+               *r_ps = at(I_PS), *r_rootr = at(I_ROOTR), *r_h = at(I_H),
+               *r_smp = at(I_SMP);
+    const Real* r_imp = WITH_IMP ? at(I_IMP) : nullptr;
+    for (int i = 0; i < nl; ++i) {
+      p_ts.set(i, __ldg(r_ts + i));
+      p_bs.set(i, __ldg(r_bs + i));
+      p_hk.set(i, __ldg(r_hk + i));
+      p_ps.set(i, __ldg(r_ps + i));
+      p_rootr.set(i, __ldg(r_rootr + i));
+      if (WITH_IMP) p_imp.set(i, __ldg(r_imp + i));
+      h.set(i, __ldg(r_h + i));
+      smp.set(i, __ldg(r_smp + i));
+      zq.set(i, zero);
+      sy.set(i, zero);
+    }
+  }
+  Real zwt = vec(I_ZWT), wa = vec(I_WA);
+  Real evap = zero, evap_grnd = zero, rnf = zero, max_res = zero;
+
+  // The day's constants.
+  const Real lai = vec(I_LAI), litter = vec(I_LITTER), f_max = vec(I_FMAX);
+  Real rain, rnet, par, lamb, rho, desatdT, vdd, gamma, vpd_att, rsc_min,
+      rac, raa, ras, rnets, g_soil;
+  {
+    // hydrology.derive_forcing, each operation rounded on its own.
+    const Real tak = vec(I_TAS), rh = vec(I_RHS), rsds = vec(I_RSDS),
+               rlds = vec(I_RLDS), pr = vec(I_PR), huss = vec(I_HUSS),
+               psair = vec(I_PSAIR);
+    const Real sw_abs =
+        args.in[I_SWABS] != nullptr ? vec(I_SWABS) : Real(0.92);
+    const Real t2 = mul_rn(tak, tak);
+    rnet = sub_rn(add_rn(mul_rn(sw_abs, rsds), rlds),
+                  mul_rn(Real(STBO), mul_rn(t2, t2)));
+    par = mul_rn(mul_rn(sw_abs, rsds), Real(2.3));
+    rain = mul_rn(Real(1.0e3), pr) / Real(RHOW);
+    lamb = mul_rn(sub_rn(Real(2503.0),
+                         mul_rn(Real(2.386), sub_rn(tak, Real(TF)))),
+                  Real(1.0e3));
+
+    // et.daily_et_context, once per cell and day.
+    const Real tsv = tak * (one + huss * Real(DELTX));
+    rho = psair / (Real(RGAS) * tsv);
+    const Real tc = tak - Real(TF);
+    const Real tc_off = tc + Real(237.3);
+    desatdT = (Real(4098.0) * (Real(0.6108) * ex(Real(17.27) * tc / tc_off))) /
+              (tc_off * tc_off);
+    desatdT = desatdT * Real(18.0) / (Real(GASC) * tak);
+    Real esat = Real(0.6108) * ex(Real(17.27) * tc / tc_off);
+    esat = esat * Real(18.0) / (Real(GASC) * tak);
+    vdd = esat * (one - rh / Real(100.0));
+    gamma = (Real(CP_AIR) * psair / (lamb * Real(0.622))) *
+            (Real(18.0e-3) / (Real(GASC) * tak));
+    const Real lai_safe = lai > zero ? lai : one;
+    rnets = rnet * ex(Real(-0.7) * lai);
+    g_soil = Real(0.2) * rnets;
+    vpd_att = pw(Real(2.8), Real(-80.0) * vmax(zero, vdd) / rho);
+    rsc_min = one / ((lai_safe / Real(2.7)) * Real(0.9) /
+                     (rho * Real(1.0e3) / Real(18.0)));
+    rac = lai > zero ? Real(25.0) / (Real(2.0) * lai_safe) : Real(1.0e6);
+    raa = lai <= Real(4.0)
+              ? Real(0.25) * lai * Real(42.0) +
+                    Real(0.25) * (Real(4.0) - lai) * Real(34.0)
+              : Real(42.0);
+    ras = lai <= Real(4.0)
+              ? Real(0.25) * lai * Real(128.0) +
+                    Real(0.25) * (Real(4.0) - lai) * Real(49.0)
+              : Real(128.0);
+  }
+
+  for (int it = 0; it < args.nisurf; ++it) {
+    // ZD09 and specific-yield profiles at the current table: every
+    // substep, or every zd09_every substeps from it = 0.
+    if (!cached || it % args.zd09_every == 0) {
+      const Real zwtmm0 = Real(1000.0) * zwt;
+      for (int i = 0; i < nl; ++i) {
+        const Real ts = p_ts.get(i), ps = p_ps.get(i), bs = p_bs.get(i);
+        zq.set(i, equilibrium_zq_any(i, zwtmm0, ts, ps, bs, g));
+        sy.set(i, specific_yield(ts, ps, bs, zwtmm0));
+      }
+    }
+
+    // --- hydrology.substep_values --------------------------------------
+    Real sum_h = h.get(0);
+    for (int i = 0; i < nl; ++i) {
+      const Real hi = h.get(i);
+      theta.set(i, hi / g.thden[i]);
+      if (i > 0) sum_h = sum_h + hi;
+    }
+    const Real w0 = rain * dt + wa + sum_h;
+
+    const Real fsat = f_max * ex(Real(-0.5 * FFF) * zwt);
+    Real qflx_surf = fsat * rain;
+
+    // et.dual_source_et
+    Real beta = zero;
+    for (int i = 0; i < nl; ++i) {
+      const Real beta_l = one - (smp.get(i) - g.zc[i]) / Real(-150000.0);
+      const Real term = p_rootr.get(i) * clip(beta_l, zero, one);
+      beta = (i == 0) ? term : beta + term;
+    }
+    const Real ts0 = p_ts.get(0);
+    const Real th0 = theta.get(0);
+    const Real rootr0 = p_rootr.get(0);
+    Real qtran, qevap;
+    {
+      const Real lai_safe = lai > zero ? lai : one;
+      const bool active = (lai > zero) && (beta > zero) && (par > zero);
+      const Real beta_safe = beta > zero ? beta : one;
+      const Real par_safe = par > zero ? par : one;
+      const Real rsc_a =
+          (one / (par_safe / (par_safe + Real(300.0)))) * Real(400.0) /
+          (Real(2.0) * lai_safe * vpd_att);
+      const Real rsc_raw = rsc_a / vmax(beta_safe, rsc_a / Real(RSC_MAX));
+      Real rsc = active ? rsc_raw : Real(1.0e6);
+      if (lai > zero) rsc = vmax(rsc, rsc_min);
+      rsc = vmin(rsc, Real(RSC_MAX));
+
+      const Real rss =
+          th0 <= Real(0.15)
+              ? (Real(10.0) + Real(1000.0) * litter) *
+                    ex(Real(0.3563 * 100.0) * (Real(0.15) - th0))
+              : Real(10.0) + Real(1000.0) * litter * (one - th0 / ts0);
+
+      const Real pmc =
+          (desatdT * (rnet - g_soil) +
+           (rho * Real(CP_AIR) * vdd - desatdT * rac * (rnets - g_soil)) /
+               (raa + rac)) /
+          (desatdT + gamma * (one + rsc / (raa + rac)));
+      const Real pms =
+          (desatdT * (rnet - g_soil) +
+           (rho * Real(CP_AIR) * vdd - desatdT * ras * (rnet - rnets)) /
+               (raa + ras)) /
+          (desatdT + gamma * (one + rss / (raa + ras)));
+      const Real r_a = (desatdT + gamma) * raa;
+      const Real r_s = (desatdT + gamma) * ras + gamma * rss;
+      const Real r_c = (desatdT + gamma) * rac + gamma * rsc;
+      const Real ccw = one / (one + r_c * r_a / (r_s * (r_c + r_a)));
+      const Real csw = one / (one + r_s * r_a / (r_c * (r_s + r_a)));
+      const Real le = ccw * pmc + csw * pms;
+      const Real vdd0 = vdd + (desatdT * (rnet - g_soil) -
+                               (desatdT + gamma) * le) *
+                                  raa / (rho * Real(CP_AIR));
+      const Real lec =
+          (desatdT * (rnet - rnets) + rho * Real(CP_AIR) * vdd0 / rac) /
+          (desatdT + gamma * (one + rsc / rac));
+      const Real les =
+          (desatdT * (rnets - g_soil) + rho * Real(CP_AIR) * vdd0 / ras) /
+          (desatdT + gamma * (one + rss / ras));
+      qtran = lec * Real(1.0e3) / (Real(RHOW) * lamb);
+      qevap = les * Real(1.0e3) / (Real(RHOW) * lamb);
+      Real evap_max1 =
+          g.dz[0] * (th0 - Real(WATMIN)) / dt - qtran * rootr0;
+      evap_max1 = vmax(zero, evap_max1);
+      qevap = vmin(evap_max1, qevap);
+    }
+
+    // Infiltration.
+    const Real qflx_in_soil = (rain - qflx_surf) - qevap;
+    Real qinmax = (one - fsat) * vmin(vmin(p_hk.get(0), p_hk.get(1)),
+                                      p_hk.get(2));
+    if (WITH_IMP) qinmax = qinmax * p_imp.get(0);
+    const Real infl_excess = vmax(zero, qflx_in_soil - qinmax);
+    const Real qflx_infl = qflx_in_soil - infl_excess;
+    qflx_surf = qflx_surf + infl_excess;
+
+    // --- soilwater.soil_water_update ------------------------------------
+    const Real zwtmm = Real(1000.0) * zwt;
+    const int jwt = water_table_index_any(zwt, g, nl);
+    const bool in_col = jwt < nl;
+    const bool below = !in_col;
+    // theta at the table's layer, for the recharge below: read before
+    // the rows are written, which take theta's slots.
+    const Real th_j = in_col ? theta.get(jwt) : one;
+    const Real zq_aq = aquifer_zq_any(zwtmm, jwt, p_ts.get(nl - 1),
+                                      p_ps.get(nl - 1), p_bs.get(nl - 1), g,
+                                      nl);
+
+    // Conductivity, potential and their derivatives of layer i.
+    auto node = [&](int i) -> Node<Real> {
+      const int inext = (i + 1 < nl) ? i + 1 : nl - 1;
+      const Real ts = p_ts.get(i), tsn = p_ts.get(inext);
+      const Real bs = p_bs.get(i);
+      const Real th = theta.get(i);
+      Real s1 = Real(0.5) * (th + theta.get(inext)) /
+                (Real(0.5) * (ts + tsn));
+      s1 = vmin(one, s1);
+      Real s2 = p_hk.get(i) * pw(s1, Real(2.0) * bs + Real(2.0));
+      if (WITH_IMP) s2 = s2 * vmin(p_imp.get(i), p_imp.get(inext));
+      Node<Real> nd;
+      nd.hk = s1 * s2;
+      nd.dhkdw = (Real(2.0) * bs + Real(3.0)) * s2 * (one / (ts + tsn));
+      const Real s_node = clip(th / ts, Real(0.01), one);
+      nd.smp = vmax(Real(SMPMIN), p_ps.get(i) * pw(s_node, -bs));
+      nd.dsmpdw = -bs * nd.smp / (s_node * ts);
+      return nd;
+    };
+
+    const Real zc_aq = Real(0.5) * (zwtmm + g.zc[nl - 1]);
+    const Real dz_aq = in_col ? g.dz[nl - 1] : zwtmm - g.zc[nl - 1];
+
+    // The tridiagonal rows, top to bottom: the flux across the interface
+    // under layer i - 1 is qout of row i - 1 and qin of row i.
+    Node<Real> cur{zero, zero, zero, zero};
+    Flux<Real> in{zero, zero, zero};
+    for (int i = 0; i < nl; ++i) {
+      const Node<Real> nd = node(i);
+      smp.set(i, nd.smp);  // the lagged potential for the next substep
+      if (i > 0) {
+        const Flux<Real> out = interface_flux(
+            cur, nd.smp, nd.dsmpdw, zq.get(i - 1), zq.get(i), g.dzc[i - 1]);
+        if (i == 1) {
+          r.set(0, qflx_infl - out.q - qtran * rootr0);
+          b.set(0, g.dz_dt[0] + out.d1);
+        } else {
+          r.set(i - 1, in.q - out.q - qtran * p_rootr.get(i - 1));
+          a.set(i - 2, -in.d1);
+          b.set(i - 1, g.dz_dt[i - 1] - in.d2 + out.d1);
+        }
+        c.set(i - 1, out.d2);
+        in = out;
+      }
+      cur = nd;
+    }
+    {
+      const int i = nl - 1;
+      a.set(i - 1, -in.d1);
+      const Real rootr_i = p_rootr.get(i);
+      if (below) {
+        // Aquifer coupling (table below the column).
+        const Real ts = p_ts.get(i), bs = p_bs.get(i);
+        const Real s_node_aq =
+            clip(Real(0.5) * (one + theta.get(i) / ts), Real(0.01), one);
+        const Real smp_aq =
+            vmax(Real(SMPMIN), p_ps.get(i) * pw(s_node_aq, -bs));
+        const Real dsmpdw_aq = -bs * smp_aq / (s_node_aq * ts);
+        const Flux<Real> out = interface_flux(
+            cur, smp_aq, dsmpdw_aq, zq.get(i), zq_aq, zc_aq - g.zc[i]);
+        r.set(i, in.q - out.q - qtran * rootr_i);
+        b.set(i, g.dz_dt[i] - in.d2 + out.d1);
+        c.set(i, out.d2);
+        r.set(nl, out.q);
+        a.set(nl - 1, -out.d1);
+        b.set(nl, dz_aq / dt - out.d2);
+      } else {
+        r.set(i, in.q - zero - qtran * rootr_i);
+        b.set(i, g.dz_dt[i] - in.d2);
+        c.set(i, zero);
+        r.set(nl, zero);
+        a.set(nl - 1, zero);
+        b.set(nl, dz_aq / dt);
+      }
+    }
+
+    // soilwater._thomas_solve_refined: solve, then one refinement step
+    // on the residual, which overwrites r; the second sweep reuses the
+    // first one's pivots bet and multipliers gam.
+    {
+      Real betv = b.get(0);
+      Real x = r.get(0) / betv;
+      bet.set(0, betv);
+      dw.set(0, x);
+      for (int i = 1; i < M; ++i) {
+        const Real gi = c.get(i - 1) / betv;
+        const Real ai = a.get(i - 1);
+        betv = b.get(i) - ai * gi;
+        x = (r.get(i) - ai * x) / betv;
+        gam.set(i - 1, gi);
+        bet.set(i, betv);
+        dw.set(i, x);
+      }
+      for (int i = M - 2; i >= 0; --i) {
+        x = dw.get(i) - gam.get(i) * x;
+        dw.set(i, x);
+      }
+      for (int i = 0; i < M; ++i) {
+        Real yi = b.get(i) * dw.get(i);
+        if (i > 0) yi = yi + a.get(i - 1) * dw.get(i - 1);
+        if (i < M - 1) yi = yi + c.get(i) * dw.get(i + 1);
+        r.set(i, r.get(i) - yi);
+      }
+      x = r.get(0) / bet.get(0);
+      r.set(0, x);
+      for (int i = 1; i < M; ++i) {
+        x = (r.get(i) - a.get(i - 1) * x) / bet.get(i);
+        r.set(i, x);
+      }
+      for (int i = M - 2; i >= 0; --i) {
+        x = r.get(i) - gam.get(i) * x;
+        r.set(i, x);
+      }
+      for (int i = 0; i < M; ++i) dw.set(i, dw.get(i) + r.get(i));
+    }
+    for (int i = 0; i < nl; ++i) h.set(i, h.get(i) + dw.get(i) * g.dz[i]);
+
+    // Aquifer recharge.
+    Real qcharge;
+    if (in_col) {
+      const int jm = jwt - 1 > 0 ? jwt - 1 : 0;
+      const Real smp_jm = smp.get(jm), zq_jm = zq.get(jm), zc_jm = g.zc[jm];
+      const Real ts_j = p_ts.get(jwt), hk_j = p_hk.get(jwt),
+                 b_j = p_bs.get(jwt);
+      const Real s1q = clip(th_j / ts_j, Real(0.01), one);
+      const Real ka = hk_j * pw(s1q, Real(2.0) * b_j + Real(3.0));
+      const Real wh = vmax(Real(SMPMIN), smp_jm) - zq_jm;
+      const Real den_q =
+          jwt == 0 ? zwtmm + one : (zwtmm - zc_jm) * Real(2.0);
+      qcharge = clip(-ka * (zero - wh) / den_q, -qlim, qlim);
+    } else {
+      qcharge = dw.get(nl) * dz_aq / dt;
+    }
+
+    // --- drainage.drainage -----------------------------------------------
+    // The walks use the stale zwtmm and jwt of the substep start.
+    const Real rous = sy.get(nl - 1);
+    const Real qtot = qcharge * dt;
+    Real zwt1 = zwt, wa1 = wa;
+    int jwt1 = jwt;
+    if (below) {
+      wa1 = wa + qcharge * dt;
+      zwt1 = zwt - (qcharge * dt) / Real(1000.0) / rous;
+    } else {
+      const bool rising = qtot > zero;
+      Real zwt_w = zwt;
+      if (rising) {
+        Real rem = qtot;
+        for (int i = nl - 1; i >= 0; --i) {
+          if (i <= jwt && rem > zero) {
+            const Real s_y = sy.get(i);
+            const Real ql =
+                vmax(vmin(rem, s_y * (zwtmm - g.zi[i])), zero);
+            zwt_w = zwt_w - ql / s_y / Real(1000.0);
+            rem = rem - ql;
+          }
+        }
+      } else {
+        Real rem_f = qtot;
+        for (int i = 0; i < nl; ++i) {
+          if (i >= jwt && rem_f < zero) {
+            const Real s_y = sy.get(i);
+            const Real ql =
+                vmin(vmax(rem_f, -s_y * (g.zi[i + 1] - zwtmm)), zero);
+            const Real rem_new = rem_f - ql;
+            zwt_w = rem_new >= zero ? zwt_w - ql / s_y / Real(1000.0)
+                                    : g.zi_m[i + 1];
+            rem_f = rem_new;
+          }
+        }
+        if (rem_f > zero) zwt_w = zwt_w - rem_f / Real(1000.0) / rous;
+      }
+      zwt1 = zwt_w;
+      jwt1 = water_table_index_any(zwt1, g, nl);
+    }
+
+    // Baseflow.  Without the cache, the yields come fresh at zwtmm1.
+    const Real zwtmm1 = Real(1000.0) * zwt1;
+    auto sy1 = [&](int i) -> Real {
+      return cached ? sy.get(i)
+                    : specific_yield(p_ts.get(i), p_ps.get(i),
+                                     p_bs.get(i), zwtmm1);
+    };
+    Real rsub_top =
+        Real(RSUB_TOP_MAX) * ex(Real(-FFF) * vmax(zwt1, Real(-1)));
+    const Real rous1 = sy1(nl - 1);
+    Real zwt2, wa2;
+    if (jwt1 == nl) {
+      const Real wa_tmp = wa1 - rsub_top * dt;
+      zwt2 = zwt1 + (rsub_top * dt) / Real(1000.0) / rous1;
+      h.set(nl - 1, h.get(nl - 1) + vmax(zero, wa_tmp - Real(5000.0)));
+      wa2 = vmin(wa_tmp, Real(5000.0));
+    } else {
+      Real rem_b = -rsub_top * dt;
+      Real zwt_w1 = zwt1;
+      for (int i = 0; i < nl; ++i) {
+        if (i >= jwt1 && rem_b < zero) {
+          const Real s_y = (i == nl - 1) ? rous1 : sy1(i);
+          const Real ql =
+              vmin(vmax(rem_b, -(s_y * (g.zi[i + 1] - zwtmm1))), zero);
+          h.set(i, h.get(i) + ql);
+          const Real rem_new = rem_b - ql;
+          zwt_w1 = rem_new >= zero ? zwt_w1 - ql / s_y / Real(1000.0)
+                                   : g.zi_m[i + 1];
+          rem_b = rem_new;
+        }
+      }
+      zwt_w1 = zwt_w1 - rem_b / Real(1000.0) / rous1;
+      wa2 = wa1 + rem_b;
+      zwt2 = zwt_w1;
+    }
+    const int jwt2 =
+        (jwt1 == nl) ? jwt1 : water_table_index_any(zwt2, g, nl);
+    zwt2 = clip(zwt2, zero, Real(80.0));
+
+    // Saturation-excess bucket cascade, bottom-up.
+    for (int i = nl - 1; i > 0; --i) {
+      const Real cap = vmax(Real(0.01), p_ts.get(i)) * g.dz[i];
+      const Real hi = h.get(i);
+      const Real xsi = vmax(hi - cap, zero);
+      h.set(i, vmin(cap, hi));
+      h.set(i - 1, h.get(i - 1) + xsi);
+    }
+    const Real cap0 = vmax(zero, ts0 * g.dz[0]);
+    const Real h0 = h.get(0);
+    const Real xs1 = vmax(vmax(h0, zero) - cap0, zero);
+    h.set(0, vmin(cap0, h0));
+    const Real qflx_rsub_sat = xs1 / dt;
+
+    // watmin floor: borrow from the layer below.
+    for (int i = 0; i < nl - 1; ++i) {
+      const Real hi = h.get(i);
+      if (hi < Real(WATMIN)) {
+        const Real xs = Real(WATMIN) - hi;
+        if (jwt2 == i + 1)
+          zwt2 = zwt2 + xs / vmax(Real(0.01), p_ts.get(i)) / Real(1000.0);
+        h.set(i, hi + xs);
+        h.set(i + 1, h.get(i + 1) - xs);
+      }
+    }
+    // Bottom layer: search upward for water.
+    Real h_bot = h.get(nl - 1);
+    Real xs = h_bot < Real(WATMIN) ? Real(WATMIN) - h_bot : zero;
+    for (int j = nl - 2; j >= 0; --j) {
+      const Real hj = h.get(j);
+      const Real avail = vmax(hj - Real(WATMIN) - xs, zero);
+      const Real take_j = vmin(xs, avail);
+      h_bot = h_bot + take_j;
+      h.set(j, hj - take_j);
+      xs = xs - take_j;
+    }
+    h.set(nl - 1, h_bot + xs);
+    rsub_top = rsub_top - xs / dt;
+
+    // Conservation residual and the daily sums.
+    Real sum_h1 = h.get(0);
+    for (int i = 1; i < nl; ++i) sum_h1 = sum_h1 + h.get(i);
+    const Real w1 =
+        (qflx_surf + qevap + qtran + rsub_top + qflx_rsub_sat) * dt + wa2 +
+        sum_h1;
+    const Real residual = w1 - w0;
+
+    zwt = zwt2;
+    wa = wa2;
+    // The focus cell's water-table trace (the reference's unit-98 dump,
+    // HYDROLOGY.f90:509); it feeds nothing back into the day.
+    if (cell == args.focus) args.wt_trace[it] = zwt;
+    evap = evap + (qevap + qtran) * dt;
+    evap_grnd = evap_grnd + qevap * dt;
+    rnf = rnf + (qflx_surf + rsub_top) * dt;
+    max_res = vmax(max_res, residual < zero ? -residual : residual);
+  }
+
+  Real* const h_out = args.out[O_H] + static_cast<size_t>(cell) * nl;
+  Real* const smp_out = args.out[O_SMP] + static_cast<size_t>(cell) * nl;
+  for (int i = 0; i < nl; ++i) {
+    h_out[i] = h.get(i);
+    smp_out[i] = smp.get(i);
+  }
+  args.out[O_ZWT][cell] = zwt;
+  args.out[O_WA][cell] = wa;
+  args.out[O_EVAP][cell] = evap;
+  args.out[O_EVAP_GRND][cell] = evap_grnd;
+  args.out[O_RNF][cell] = rnf;
+  args.out[O_RES][cell] = max_res;
+}
+
+// What the device offers day_kernel_any, asked once per device.
+struct AnyDevice {
+  bool known;
+  int sms;        // streaming multiprocessors
+  int max_bytes;  // dynamic shared memory a block may use
+};
+
+template <typename Real, bool WITH_IMP>
+struct AnyInstance {
+  static auto kernel() { return &day_kernel_any<Real, WITH_IMP>; }
+
+  static long long shared_bytes(int nl, int threads) {
+    return (static_cast<long long>(any_geom_words(nl)) +
+            static_cast<long long>(threads) * any_thread_words(nl, WITH_IMP)) *
+           static_cast<long long>(sizeof(Real));
+  }
+
+  // Threads a block: one warp, or the most of 16, 8, ... 1 whose shared
+  // memory fits a block's; 0 if not even one thread's does.
+  static int threads(int nl, int max_bytes) {
+    for (int t = BLOCK; t >= 1; t /= 2)
+      if (shared_bytes(nl, t) <= max_bytes) return t;
+    return 0;
+  }
+
+  // The device's SMs and block limit; lets the kernel use all of a
+  // block's shared memory and asks for the shared-memory carveout, the
+  // first time on each device.
+  static int device(AnyDevice** out) {
+    static AnyDevice cache[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 0 || dev >= MAX_DEVICES) return -2;
+    AnyDevice& d = cache[dev];
+    if (!d.known) {
+      e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      e = cudaDeviceGetAttribute(&d.max_bytes,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      e = cudaFuncSetAttribute(kernel(),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               d.max_bytes);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      e = cudaFuncSetAttribute(kernel(),
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               100);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      d.known = true;
+    }
+    *out = &d;
+    return 0;
+  }
+
+  // out = {SMs, resident blocks an SM, threads a block, shared bytes a
+  // block} at nl layers.
+  static int residency(int nl, int* out) {
+    AnyDevice* d = nullptr;
+    const int rc = device(&d);
+    if (rc != 0) return rc;
+    const int t = threads(nl, d->max_bytes);
+    if (t == 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int bytes = static_cast<int>(shared_bytes(nl, t));
+    int blocks = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel(), t, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (blocks < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    out[0] = d->sms;
+    out[1] = blocks;
+    out[2] = t;
+    out[3] = bytes;
+    return 0;
+  }
+
+  static int launch(int nl, const void* const* ins, const int* strides,
+                    void* const* outs, int n, int grid, int nisurf,
+                    int zd09_every, double dt, const void* geom_dev,
+                    int focus, void* wt_trace, cudaStream_t stream) {
+    AnyDevice* d = nullptr;
+    const int rc = device(&d);
+    if (rc != 0) return rc;
+    const int t = threads(nl, d->max_bytes);
+    if (t == 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (geom_dev == nullptr || grid < (n + t - 1) / t) return -1;
+    ArgsAny<Real> args;
+    for (int k = 0; k < N_IN; ++k) {
+      args.in[k] = static_cast<const Real*>(ins[k]);
+      args.stride[k] = strides[k];
+    }
+    for (int k = 0; k < N_OUT; ++k) args.out[k] = static_cast<Real*>(outs[k]);
+    args.geom = static_cast<const double*>(geom_dev);
+    args.dt = dt;
+    args.nl = nl;
+    args.n = n;
+    args.nisurf = nisurf;
+    args.zd09_every = zd09_every;
+    args.focus = focus;
+    args.wt_trace = static_cast<Real*>(wt_trace);
+    const int bytes = static_cast<int>(shared_bytes(nl, t));
+    day_kernel_any<Real, WITH_IMP><<<grid, t, bytes, stream>>>(args);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// Calls AnyInstance<...>::residency or ::launch for (dtype_bytes,
+// with_imp); -1 for another dtype or fewer than 3 layers.
+template <typename F>
+int with_any_instance(int dtype_bytes, int nl, int with_imp, F f) {
+  if (nl < 3) return -1;
+  if (dtype_bytes == 4)
+    return with_imp ? f(AnyInstance<float, true>())
+                    : f(AnyInstance<float, false>());
+  if (dtype_bytes == 8)
+    return with_imp ? f(AnyInstance<double, true>())
+                    : f(AnyInstance<double, false>());
+  return -1;
+}
+
+// Whether (dtype_bytes, nl) has an instance of its own.
+bool has_fixed_instance(int dtype_bytes, int nl) {
+  return (dtype_bytes == 4 || dtype_bytes == 8) && (nl == 8 || nl == 20);
+}
+
 }  // namespace
 
-// Plain C entries.  dtype_bytes is 4 (float) or 8 (double).  Both return 0
-// on success, a CUDA error code, or -1 for a dtype/layer count with no
-// instance or a grid that does not cover the cells; both act on the
-// current device.
+// Plain C entries.  dtype_bytes is 4 (float) or 8 (double).  The instance
+// is the one built for (dtype, nl) where there is one and any_nl is 0, else
+// day_kernel_any.  Both return 0 on success, a CUDA error code, or -1 for
+// a dtype or a layer count (fewer than 3) with no instance or a grid that
+// does not cover the cells; both act on the current device.
 
 // out[4] = {SMs of the device, resident blocks of the instance an SM
 // holds, threads a block, dynamic shared bytes a block}.  Asks the device
 // once and caches.
 extern "C" int h9_day_residency(int dtype_bytes, int nl, int with_imp,
-                                int* out) {
-  return with_instance(dtype_bytes, nl, with_imp,
-                       [&](auto inst) { return inst.residency(out); });
+                                int any_nl, int* out) {
+  if (!any_nl && has_fixed_instance(dtype_bytes, nl))
+    return with_instance(dtype_bytes, nl, with_imp,
+                         [&](auto inst) { return inst.residency(out); });
+  return with_any_instance(dtype_bytes, nl, with_imp, [&](auto inst) {
+    return inst.residency(nl, out);
+  });
 }
 
 // ins holds N_IN device pointers in the order of the I_* slots (I_IMP is
 // null when with_imp is 0, I_SWABS may be null: 0.92 everywhere), strides
 // the elements from one cell to the next of each input (rows of layered
-// inputs are contiguous and 16-byte aligned), outs N_OUT contiguous
-// outputs; geom holds zi[nl+2], dz[nl], zc[nl] on the host.  focus is a
-// cell in [0, n) whose zwt after each substep goes to wt_trace[nisurf] on
-// the device, or -1 (wt_trace may then be null).  Launches `grid` blocks
-// of one warp on `stream`, a thread for each cell.  Allocates nothing,
-// never syncs.
+// inputs are contiguous; for a fixed instance 16-byte aligned too), outs
+// N_OUT contiguous outputs; geom holds zi[nl+2], dz[nl], zc[nl] on the host
+// for a fixed instance, geom_dev the same doubles on the device for
+// day_kernel_any.  focus is a cell in [0, n) whose zwt after each substep
+// goes to wt_trace[nisurf] on the device, or -1 (wt_trace may then be
+// null).  Launches `grid` blocks on `stream` (one warp a block for a fixed
+// instance, h9_day_residency's threads for day_kernel_any), a thread for
+// each cell.  Allocates nothing, never syncs.
 extern "C" int h9_hydrology_day(int dtype_bytes, int nl, int with_imp,
-                                const void* const* ins, const int* strides,
-                                void* const* outs, int n, int grid,
-                                int nisurf, int zd09_every, double dt,
-                                const double* geom, int focus,
+                                int any_nl, const void* const* ins,
+                                const int* strides, void* const* outs, int n,
+                                int grid, int nisurf, int zd09_every,
+                                double dt, const double* geom,
+                                const void* geom_dev, int focus,
                                 void* wt_trace, void* stream) {
-  if (n < 1 || grid < (n + BLOCK - 1) / BLOCK) return -1;
+  if (n < 1) return -1;
   if (focus < -1 || focus >= n || (focus >= 0 && wt_trace == nullptr))
     return -1;
-  return with_instance(dtype_bytes, nl, with_imp, [&](auto inst) {
-    return inst.launch(ins, strides, outs, n, grid, nisurf, zd09_every, dt,
-                       geom, focus, wt_trace,
+  if (!any_nl && has_fixed_instance(dtype_bytes, nl)) {
+    if (grid < (n + BLOCK - 1) / BLOCK) return -1;
+    return with_instance(dtype_bytes, nl, with_imp, [&](auto inst) {
+      return inst.launch(ins, strides, outs, n, grid, nisurf, zd09_every, dt,
+                         geom, focus, wt_trace,
+                         static_cast<cudaStream_t>(stream));
+    });
+  }
+  return with_any_instance(dtype_bytes, nl, with_imp, [&](auto inst) {
+    return inst.launch(nl, ins, strides, outs, n, grid, nisurf, zd09_every,
+                       dt, geom_dev, focus, wt_trace,
                        static_cast<cudaStream_t>(stream));
   });
 }

@@ -104,16 +104,17 @@ def bind_day_kernel(path) -> ctypes.CDLL:
     entries."""
     lib = ctypes.CDLL(str(path))
     fn = lib.h9_hydrology_day
-    # dtype_bytes, nl, with_imp, ins, strides, outs, n, grid, nisurf,
-    # zd09_every, dt, geom, focus, wt_trace, stream
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    # dtype_bytes, nl, with_imp, any_nl, ins, strides, outs, n, grid,
+    # nisurf, zd09_every, dt, geom, geom_dev, focus, wt_trace, stream
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_double, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.h9_day_residency
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    # dtype_bytes, nl, with_imp, any_nl, out
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

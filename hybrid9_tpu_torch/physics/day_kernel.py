@@ -13,10 +13,14 @@ source).  Its design answers with residency and small code: blocks of
 one warp, the 0.5-degree grid's 2,176 warps resident at once (17 on each
 of 132 SMs at 96 registers a thread), the layer loops kept as loops over
 vectors in shared memory, and the state read and written ``[n, nl]`` as
-the model holds it, so that a day is one launch.  What the wrapper
-decides on the host is plain Python here and tested on the CPU: the
-grid (:func:`launch_grid`), the tensors it accepts (:func:`cell_stride`)
-and what it refuses of an instance (:func:`instance_residency`).
+the model holds it, so that a day is one launch.  The layer counts of
+``FIXED_NLS`` have builds of their own; every other count from ``MIN_NL``
+up runs on one more build whose layer count is a run-time argument
+(``day_kernel_any``), as the Pallas kernel takes any layer count.  What
+the wrapper decides on the host is plain Python here and tested on the
+CPU: the instance (:func:`kernel_instance`), the grid
+(:func:`launch_grid`), the tensors it accepts (:func:`cell_stride`) and
+what it refuses of an instance (:func:`instance_residency`).
 
 ``hydrology_day_sharded`` is the port of
 ``pallas_hydrology_day_sharded``: it cuts the cell axis into one slab
@@ -38,12 +42,16 @@ from ..state import Forcing, SoilParams, SoilState, VegState
 from .drainage import compute_specific_yields
 from .et import daily_et_context
 from .hydrology import Geometry, derive_forcing, substep_values
-from .layers import stack, unstack
+from .layers import layer_tensor, stack, unstack
 from .soilwater import compute_equilibrium_zq
 
-# Layer counts and dtypes the kernel is instantiated for.
-KERNEL_NLS = (8, 20)
+# Layer counts with a build of their own, and the dtypes of every build.
+FIXED_NLS = (8, 20)
 KERNEL_DTYPES = (torch.float32, torch.float64)
+#: The fewest layers the day takes: infiltration reads the top three
+#: layers' conductivity (``hydrology.substep_values``), as in the JAX
+#: package, whose day fails on fewer.
+MIN_NL = 3
 
 #: Number of CUDA day-kernel launches in this process.
 launches = 0
@@ -183,13 +191,44 @@ def rounds(n: int, sms: int, blocks_per_sm: int, block: int) -> int:
     return -(-launch_grid(n, block) // (sms * blocks_per_sm))
 
 
+def layer_cap(dtype) -> int:
+    """The most layers ``day_kernel_any`` takes in ``dtype``: one thread's
+    vectors (17 nl + 4 words with imp) and the block's geometry (8 nl + 4
+    words, csrc/day_kernel.cu) must fit the shared memory of a block,
+    ``SHARED_BYTES_MAX``.  2,324 in float32, 1,161 in float64."""
+    words = SHARED_BYTES_MAX // torch.empty((), dtype=dtype).element_size()
+    return (words - 8) // 25
+
+
+def kernel_instance(dtype, nl: int, any_nl: bool = False) -> bool:
+    """Whether a day of ``nl`` layers in ``dtype`` runs on the build whose
+    layer count is a run-time argument (True) or on the build for ``nl``
+    (False, for ``nl`` in ``FIXED_NLS`` unless ``any_nl``).  Raises
+    ``ValueError`` on a dtype with no build and on a layer count below
+    ``MIN_NL`` or above :func:`layer_cap`."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"day kernel has no instance for {dtype} (has "
+                         f"{KERNEL_DTYPES})")
+    if nl < MIN_NL:
+        raise ValueError(f"day kernel: nl={nl}; the day takes at least "
+                         f"{MIN_NL} layers (infiltration reads the top "
+                         f"three)")
+    runtime = any_nl or nl not in FIXED_NLS
+    if runtime and nl > layer_cap(dtype):
+        raise ValueError(f"day kernel: nl={nl} is above the cap of "
+                         f"{layer_cap(dtype)} layers in {dtype}: one cell's "
+                         f"vectors must fit a block's shared memory")
+    return runtime
+
+
 def cell_stride(x: torch.Tensor, name: str, n: int, nl: Optional[int],
-                dtype, device) -> int:
+                dtype, device, aligned: bool = True) -> int:
     """Elements from one cell of ``x`` to the next, for the kernel.  ``x``
     is ``[n]`` (``nl=None``; any stride) or ``[n, nl]`` with contiguous
-    rows that start on 16-byte addresses: a contiguous tensor, or a view
-    such as ``y[lo:hi]`` of one.  Raises on anything else; nothing is
-    copied."""
+    rows: a contiguous tensor, or a view such as ``y[lo:hi]`` of one.  With
+    ``aligned`` (a fixed build, which moves rows in 16-byte words) the rows
+    must also start on 16-byte addresses; ``day_kernel_any`` reads them an
+    element at a time.  Raises on anything else; nothing is copied."""
     shape = (n,) if nl is None else (n, nl)
     if x.shape != shape or x.dtype != dtype or x.device != device:
         raise ValueError(
@@ -205,7 +244,7 @@ def cell_stride(x: torch.Tensor, name: str, n: int, nl: Optional[int],
                 f"(strides {x.stride()}); pass [n, nl] as the model holds "
                 f"it")
         item = x.element_size()
-        if x.data_ptr() % 16 or (stride * item) % 16:
+        if aligned and (x.data_ptr() % 16 or (stride * item) % 16):
             raise ValueError(
                 f"day kernel: the rows of {name} do not start on 16-byte "
                 f"addresses (offset {x.data_ptr() % 16}, cell stride "
@@ -213,20 +252,25 @@ def cell_stride(x: torch.Tensor, name: str, n: int, nl: Optional[int],
     return stride
 
 
-def instance_residency(lib, dtype, nl: int, with_imp: bool):
+def instance_residency(lib, dtype, nl: int, with_imp: bool,
+                       any_nl: bool = False):
     """``(sms, blocks_per_sm, block, shared bytes a block)`` of a kernel
-    instance on the current CUDA device, asked of the library once per
-    device and instance.  Raises if the library has no such instance, if
-    the device refuses it, or if it wants more shared memory than a block
-    may use."""
-    key = (id(lib), torch.cuda.current_device(), dtype, nl, with_imp)
+    instance on the current CUDA device (``day_kernel_any`` at ``nl``
+    where ``nl`` has no build of its own or ``any_nl``), asked of the
+    library once per device, dtype, layer count and instance.  Raises if
+    the library has no such instance, if the device refuses it, or if it
+    wants more shared memory than a block may use."""
+    key = (id(lib), torch.cuda.current_device(), dtype, nl, with_imp,
+           any_nl)
     if key not in _residency:
         out = (ctypes.c_int * 4)()
-        rc = lib.h9_day_residency(dtype.itemsize, nl, int(with_imp), out)
+        rc = lib.h9_day_residency(dtype.itemsize, nl, int(with_imp),
+                                  int(any_nl), out)
         if rc != 0:
             raise RuntimeError(
                 f"day kernel: no residency for {dtype}, nl={nl}, "
-                f"imp={with_imp} on device {key[1]}: error {rc}")
+                f"imp={with_imp}, any_nl={any_nl} on device {key[1]}: "
+                f"error {rc}")
         sms, blocks_per_sm, block, nbytes = out
         if nbytes > SHARED_BYTES_MAX:
             raise RuntimeError(
@@ -242,10 +286,15 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
                        nisurf: int, imp: Optional[torch.Tensor] = None,
                        zd09_every: int = 1,
                        sw_abs: Optional[torch.Tensor] = None,
-                       focus_idx: Optional[int] = None) -> DayResult:
+                       focus_idx: Optional[int] = None,
+                       any_nl: bool = False) -> DayResult:
     """The same day as :func:`hydrology_day_plain`, as ONE launch of the
     CUDA day kernel (``csrc/day_kernel.cu``) on the current stream, and
     nothing else on the device: no transpose, no copy, no small kernel.
+    ``nl`` in ``FIXED_NLS`` runs on the build for it, any other layer
+    count from ``MIN_NL`` up (and every count with ``any_nl``) on
+    ``day_kernel_any``, whose geometry is a float64 tensor made once per
+    geometry and device (``layers.layer_tensor``).
     With ``focus_idx`` the thread of that cell also writes its water table
     after each substep into ``wt_substeps``, a runtime argument of the
     same instance: every other output is bitwise that of the day without.
@@ -266,9 +315,7 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
     dtype, device = h.dtype, h.device
     if device.type != "cuda":
         raise ValueError(f"day kernel needs CUDA tensors, got {device}")
-    if dtype not in KERNEL_DTYPES or nl not in KERNEL_NLS:
-        raise ValueError(f"day kernel has no instance for {dtype}, "
-                         f"nl={nl} (has {KERNEL_DTYPES} x {KERNEL_NLS})")
+    runtime = kernel_instance(dtype, nl, any_nl)
     if n < 1 or nisurf < 1 or zd09_every < 1:
         raise ValueError(f"day kernel: n={n}, nisurf={nisurf}, "
                          f"zd09_every={zd09_every} must all be >= 1")
@@ -299,14 +346,17 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
                 f"with use_kernel=False")
     strides = [0 if x is None else
                cell_stride(x, name, n, nl if layered else None, dtype,
-                           device) for name, x, layered in ins]
+                           device, aligned=not runtime)
+               for name, x, layered in ins]
     outs = [torch.empty((n, nl), dtype=dtype, device=device)
             for _ in range(2)] + \
            [torch.empty((n,), dtype=dtype, device=device) for _ in range(6)]
     wt = (None if focus_idx is None else
           torch.empty((nisurf,), dtype=dtype, device=device))
-    geom_host = np.asarray(geom.zi + geom.dz_soil + geom.zc_soil,
-                           dtype=np.float64)
+    geom_values = geom.zi + geom.dz_soil + geom.zc_soil
+    geom_host = np.asarray(geom_values, dtype=np.float64)
+    geom_dev = (layer_tensor(geom_values, torch.float64, device)
+                if runtime else None)
     in_ptrs = (ctypes.c_void_p * len(ins))(
         *[None if x is None else x.data_ptr() for _, x, _ in ins])
     in_strides = (ctypes.c_int * len(ins))(*strides)
@@ -314,13 +364,16 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
 
     lib = kernels.day_kernel_lib()
     with torch.cuda.device(device):
-        _, _, block, _ = instance_residency(lib, dtype, nl, imp is not None)
+        _, _, block, _ = instance_residency(lib, dtype, nl, imp is not None,
+                                            runtime)
         grid = launch_grid(n, block)
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.h9_hydrology_day(
-            dtype.itemsize, nl, int(imp is not None), in_ptrs, in_strides,
-            out_ptrs, n, grid, nisurf, zd09_every, float(dt),
-            geom_host.ctypes.data, -1 if wt is None else int(focus_idx),
+            dtype.itemsize, nl, int(imp is not None), int(runtime), in_ptrs,
+            in_strides, out_ptrs, n, grid, nisurf, zd09_every, float(dt),
+            geom_host.ctypes.data,
+            None if geom_dev is None else geom_dev.data_ptr(),
+            -1 if wt is None else int(focus_idx),
             None if wt is None else wt.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"day kernel launch failed: CUDA error {rc}")

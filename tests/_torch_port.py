@@ -281,14 +281,17 @@ def run_both(dtype, days=5, **switch):
                      land_grid=grid)
     block = synthetic_forcing_block(days, sim.n, seed=3, start_doy=1,
                                     lat=grid.cell_lat)
+    nl = cfg.layer_grid().nsoil
     want_state, want_acc = jax.jit(
         _block_step, static_argnames=_BLOCK_STEP_STATIC)(
-        jsim.state, j_state.AnnualAccumulators.zeros(jsim.n, dtype=jd),
+        jsim.state,
+        j_state.AnnualAccumulators.zeros(jsim.n, nsoil=nl, dtype=jd),
         j_state.Forcing(**{k: jnp.asarray(v, jd) for k, v in block.items()}),
         jsim.params, geom=jsim.geom, dt=jcfg.dt, nisurf=jcfg.nisurf,
         **jsim.step_kwargs())
     got_state, got_acc = block_step(
-        sim.state, t_state.AnnualAccumulators.zeros(sim.n, td, "cpu"),
+        sim.state, t_state.AnnualAccumulators.zeros(sim.n, td, "cpu",
+                                                    nsoil=nl),
         t_state.Forcing.from_numpy(block, td, "cpu"), sim.params, sim.geom,
         sim.cfg.dt, sim.cfg.nisurf, **sim.step_kwargs())
     return (jsim, sim,

@@ -10,9 +10,11 @@ with the suite's conftest left out:
 It reuses chip_smoke.py's cases at 1,024 cells: every output of the day
 (soil water, water table, aquifer, matric potential and the three daily
 sums) in float32 at the tests/test_pallas_day.py tolerances on the
-reference case's states and on columns across regimes (knife-edge cells
-held to finiteness and the water balance only), and in float64 at 1e-9
-on columns across regimes, the residual included.  The flagship day
+reference case's states, on columns across regimes and on the edge
+states (knife-edge cells held to finiteness and the water balance only),
+and in float64 at 1e-9 on columns across regimes and the edge states,
+the residual included, at 8 and 20 layers (the fixed builds) and at 5,
+10 and 32 (``day_kernel_any``).  The flagship day
 (``Config()`` defaults on the 4-degree grid) runs three winter days
 through ``block_step`` with one kernel launch per day and is held against
 the plain twin; the sharded launcher is held bitwise against the
@@ -22,7 +24,9 @@ slab views ``x[lo:hi]`` without a copy (bitwise the same cells of the
 whole tensor's day), refuses views whose rows are not contiguous or not
 aligned, and two launches on the same inputs agree bitwise.  With a
 focus cell the kernel writes that cell's water table after each substep
-(held against the twin's trace) and changes no other output.
+(held against the twin's trace) and changes no other output.  A source
+that does not build and a launch the C entry refuses raise; two years of
+the hot climate run finite and conserving on the kernel.
 """
 
 import pytest
@@ -38,10 +42,14 @@ from hybrid9_tpu_torch.step import block_step
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("zd09_every", [1, 8])
-@pytest.mark.parametrize("nl", [8, 20])
-@pytest.mark.parametrize("dtype,regime", chip_smoke.CHECK_REGIMES,
-                         ids=lambda x: str(x).replace("torch.", ""))
+@pytest.mark.parametrize(
+    "dtype,regime,nl", [(d, r, nl) for nl in (8, 20, 5, 10, 32)
+                        for d, r in chip_smoke.regimes_at(nl)],
+    ids=lambda x: str(x).replace("torch.", ""))
 def test_day_kernel_matches_plain_twin(dtype, regime, nl, zd09_every):
+    """The fixed builds at 8 and 20 layers, ``day_kernel_any`` at 5, 10
+    and 32 (float32 on the varied columns only above
+    ``chip_smoke.COARSE_NL`` layers), on every regime."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the day kernel has no CPU form")
     case = chip_smoke.check_case(1024, nl, dtype, torch.device("cuda"),
@@ -90,12 +98,14 @@ def test_ragged_cell_counts_match_the_plain_twin(n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,nl", [(torch.float32, 8),
-                                      (torch.float64, 20)],
-                         ids=["float32-nl8", "float64-nl20"])
+                                      (torch.float64, 20),
+                                      (torch.float32, 10)],
+                         ids=["float32-nl8", "float64-nl20", "float32-nl10"])
 def test_slab_views_go_in_without_a_copy(dtype, nl):
     """A slab ``x[lo:hi]`` of every operand, as the sharded launcher cuts
     them, is read in place: the day of the slab is bitwise the same cells
-    of the whole tensor's day."""
+    of the whole tensor's day.  At 10 layers in float32 the slabs starting
+    at an odd cell start on 8-byte addresses (``day_kernel_any``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the day kernel has no CPU form")
     soil, veg, params, forcing, geom, imp = chip_smoke.check_case(
@@ -235,7 +245,9 @@ def test_sharded_flagship_block_is_bitwise_the_unsharded_block():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,regime", chip_smoke.CHECK_REGIMES,
+@pytest.mark.parametrize("dtype,regime",
+                         [x for x in chip_smoke.CHECK_REGIMES
+                          if x[1] != "edge"],
                          ids=lambda x: str(x).replace("torch.", ""))
 def test_focus_trace_matches_the_twin(dtype, regime):
     """The kernel's per-substep trace of a focus cell against the twin's
@@ -403,3 +415,39 @@ def test_folded_kernel_day_is_the_unfolded_control():
         soil, veg, control, forcing, geom, 1800.0, 48, zd09_every=8))
     for name, x in want.items():
         assert torch.equal(unfold(got[name], m)[0], x), name
+
+
+@pytest.mark.cuda
+def test_a_failed_build_or_launch_raises(tmp_path, monkeypatch):
+    """No fallback to the twin: a source nvcc refuses raises from the
+    build, and a launch the C entry refuses (a grid short of the cells)
+    raises from the wrapper without counting a launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the day kernel has no CPU form")
+    from hybrid9_tpu_torch import kernels
+    broken = tmp_path / "day_kernel.cu"
+    broken.write_text("#error a source that does not build\n"
+                      + kernels.DAY_KERNEL_SOURCE.read_text())
+    monkeypatch.setattr(kernels, "_BUILD_DIR", tmp_path / "_build")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        kernels.build("h9broken", [broken])
+    monkeypatch.undo()
+    soil, veg, params, forcing, geom, imp = chip_smoke.check_case(
+        256, 10, torch.float32, torch.device("cuda"), "reference")
+    monkeypatch.setattr(day_kernel, "launch_grid", lambda n, block: 1)
+    before = day_kernel.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        day_kernel.hydrology_day_cuda(soil, veg, params, forcing, geom,
+                                      1800.0, 48, imp=imp)
+    assert day_kernel.launches == before
+
+
+@pytest.mark.cuda
+def test_hot_climate_on_the_kernel():
+    """Two years at 318 K on 64 reference cells through ``day_step`` on
+    the kernel: finite, plant mass and root depth positive, every day's
+    residual under 0.1 mm (DEVIATIONS.md #9)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the day kernel has no CPU form")
+    out = chip_smoke.hot_climate(torch.device("cuda", 0))
+    assert out["launches"] == chip_smoke.HOT_DAYS == 730

@@ -3,8 +3,10 @@
 ``hydrology_day_plain``, the plain twin of the CUDA day kernel, is held
 against JAX's Pallas day kernel (interpret mode) and, in float64 on
 columns spread across regimes, against JAX's XLA substep loop
-``step._xla_day_substeps`` at rtol 1e-9 (the float32 cases are in
-test_torch_day_kernel_f32.py).  The dispatch sends CPU tensors to the
+``step._xla_day_substeps`` at rtol 1e-9, at the canonical 8 layers and
+on the exponential grids of 3 to 32 (the float32 cases are in
+test_torch_day_kernel_f32.py, other layer counts in
+test_torch_layer_counts.py).  The dispatch sends CPU tensors to the
 twin and never falls back; the CUDA kernel itself is compared with the
 twin on the card (test_torch_cuda.py, chip_smoke.py).
 """
@@ -23,7 +25,7 @@ from hybrid9_tpu_torch.step import day_step
 from _torch_port import F32_TOL, N, check_day, check_plain_day_against_xla
 
 
-@pytest.mark.parametrize("nl", [8, 20])
+@pytest.mark.parametrize("nl", [3, 4, 8, 10, 15, 20, 32])
 @pytest.mark.parametrize("imp", [False, True])
 @pytest.mark.parametrize("zd09_every", [1, 8])
 def test_plain_day_matches_xla_day_substeps_f64(zd09_every, imp, nl):

@@ -8,7 +8,10 @@ covers every cell exactly once for cell counts around a warp, around the
 0.5-degree grid and at the 0.25-degree grid; the main-path build holds
 the 0.5-degree grid in one round; an instance that wants more shared
 memory than a block may use is refused; slab views go in without a copy
-and anything else raises.
+and anything else raises.  Layer counts with a build of their own go to
+it, every other count from 3 to the cap (at least 64 in both dtypes) to
+``day_kernel_any``, whose rows may start on any element; fewer than 3
+layers and more than the cap raise before any launch.
 """
 
 import pytest
@@ -57,7 +60,7 @@ class _Library:
     def __init__(self, rc=0, answer=(132, 17, 32, 12_544)):
         self.rc, self.answer, self.calls = rc, answer, 0
 
-    def h9_day_residency(self, itemsize, nl, with_imp, out):
+    def h9_day_residency(self, itemsize, nl, with_imp, any_nl, out):
         self.calls += 1
         out[:] = self.answer
         return self.rc
@@ -78,6 +81,10 @@ def test_residency_is_asked_once_per_instance(device_0):
     assert lib.calls == 1
     dk.instance_residency(lib, torch.float32, 8, False)
     assert lib.calls == 2
+    # day_kernel_any: once per layer count, apart from the fixed build.
+    for nl in (10, 10, 8, 8):
+        dk.instance_residency(lib, torch.float32, nl, False, any_nl=True)
+    assert lib.calls == 4
 
 
 @pytest.mark.parametrize("nbytes", [232_448, 232_449])
@@ -148,3 +155,76 @@ def test_wrapper_refuses_cpu_tensors_before_anything_else():
         dk.hydrology_day_cuda(case.state.soil, case.state.veg, case.params,
                               case.forcing, case.geom, case.cfg.dt,
                               case.cfg.nisurf)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_layer_counts_go_to_their_instance(dtype):
+    """The fixed builds at 8 and 20 layers, ``day_kernel_any`` at every
+    other count from 3 up to at least 64 and wherever it is asked for."""
+    for nl in dk.FIXED_NLS:
+        assert dk.kernel_instance(dtype, nl) is False
+        assert dk.kernel_instance(dtype, nl, any_nl=True) is True
+    for nl in range(dk.MIN_NL, 65):
+        if nl not in dk.FIXED_NLS:
+            assert dk.kernel_instance(dtype, nl) is True
+
+
+@pytest.mark.parametrize("dtype,cap", [(torch.float32, 2_324),
+                                       (torch.float64, 1_161)])
+def test_layer_cap_is_where_one_cell_fills_a_block(dtype, cap):
+    """``day_kernel_any`` keeps a cell's vectors (17 nl + 4 words with
+    imp) and the block's geometry (8 nl + 4) in shared memory: the cap is
+    the most layers whose one-thread block fits SHARED_BYTES_MAX."""
+    item = torch.empty((), dtype=dtype).element_size()
+    assert dk.layer_cap(dtype) == cap >= 64
+    assert (25 * cap + 8) * item <= dk.SHARED_BYTES_MAX \
+        < (25 * (cap + 1) + 8) * item
+    dk.kernel_instance(dtype, cap)
+    with pytest.raises(ValueError, match=f"above the cap of {cap} layers"):
+        dk.kernel_instance(dtype, cap + 1)
+
+
+@pytest.mark.parametrize("nl", [0, 1, 2])
+def test_fewer_than_three_layers_are_refused(nl):
+    with pytest.raises(ValueError, match="at least 3 layers"):
+        dk.kernel_instance(torch.float32, nl)
+
+
+def test_a_dtype_without_a_build_is_refused():
+    with pytest.raises(ValueError, match="no instance"):
+        dk.kernel_instance(torch.float16, 10)
+
+
+def test_slab_views_of_10_layers_need_no_alignment_for_day_kernel_any():
+    """A slab ``x[lo:hi]`` of a ``[n, 10]`` float32 tensor starts on an
+    8-byte address when ``lo`` is odd: ``day_kernel_any`` reads it in
+    place, a fixed build would refuse it."""
+    x = _tensor(64, 10)
+    for lo, hi in ((0, 64), (1, 33), (31, 64), (63, 64)):
+        view = x[lo:hi]
+        assert view.data_ptr() % 16 == (8 if lo % 2 else 0)
+        assert dk.cell_stride(view, "x", hi - lo, 10, torch.float32,
+                              x.device, aligned=False) == 10
+        if lo % 2:
+            with pytest.raises(ValueError, match="16-byte"):
+                dk.cell_stride(view, "x", hi - lo, 10, torch.float32,
+                               x.device)
+    with pytest.raises(ValueError, match="rows of x are not contiguous"):
+        dk.cell_stride(_tensor(64, 20)[:, ::2], "x", 64, 10, torch.float32,
+                       x.device, aligned=False)
+
+
+def test_grid_rounds_and_operations_at_10_layers():
+    """The launch geometry does not depend on the layer count; the
+    operations of a cell-day at 10 layers with the table below the
+    column are 54,662 arithmetic and 1,444 transcendental, 0.0584 ms for
+    69,632 cells at 67 TFLOP/s."""
+    assert dk.launch_grid(69_632, 32) == 2_176
+    assert dk.rounds(69_632, 132, 9, 32) == 2
+    arith, trans = dk.day_operations(10, 48, 8, True, 10)
+    assert (arith, trans) == (54_662, 1_444)
+    jwt = torch.tensor([10, 3, 0])
+    a3, t3 = dk.day_operations(10, 48, 8, True, jwt)
+    assert int(a3[0]) == arith and int(t3[0]) == trans
+    assert bool((a3[1:] < arith).all())
+    assert abs((arith + trans) * 69_632 / 67e12 * 1e3 - 0.0584) < 1e-4
