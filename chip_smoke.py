@@ -9,10 +9,15 @@ non-zero:
 1. device: a CUDA card is required (there is no CPU path); prints its
    name and, as ``nvidia-smi`` gives them, its name and power limit;
 2. build: compiles ``hybrid9_tpu_torch/csrc/day_kernel.cu`` with nvcc for
-   sm_90a and prints the build seconds, the registers and spills of each
-   kernel instance, and what the card holds of each (resident blocks an
-   SM, shared memory a block; for ``day_kernel_any``, whose layer count is
-   a run-time argument, at 10 layers);
+   sm_90a, one unit of compilation for the fixed builds and the C entries
+   and one for each register build of ``day_kernel_any`` (whose layer
+   count is a run-time argument), all at once, and prints the build
+   seconds (each unit's too), the registers, stack frame and spills of
+   each kernel instance, and what the card holds of each (resident blocks
+   an SM, shared memory a block); for ``day_kernel_any`` beside what
+   ``day_kernel.any_residency`` predicts, a register build at its
+   capacity and at the fewest layers it serves, the all-shared form at
+   10 layers;
 3. kernel vs plain twin on the card: n = 4,096 cells, one day,
    zd09_every in {1, 8}, with and without the frozen-soil impedance,
    nl in {8, 20}, every output of the day: in float32 at the tolerances
@@ -24,8 +29,10 @@ non-zero:
    FMA contraction is one) can flip a knife-edge cell's branch and move
    it by millimetres; such cells, found from the twin alone
    (``knife_edge_cells``), are held to finiteness and the water balance.
-   Then ``day_kernel_any`` against the twin at nl in {3, 4, 5, 10, 15, 32}
-   and {8, 20}, zd09_every=8, with and without imp: float64 on the varied
+   Then ``day_kernel_any`` against the twin at nl in {3, 9, 11, 12, 13,
+   16, 24, 30, 32} (the ends of each register build's range and the
+   all-shared form beside them) and {8, 20}, zd09_every=8, with and
+   without imp: float64 on the varied
    columns at 1e-9, float32 on the varied columns off the interfaces with
    the knife-edge cells set aside and those of ``float32_noise_cells`` and
    ``rounding_explained`` (at most 5 % in all), at 5 layers and fewer on
@@ -183,9 +190,12 @@ non-zero:
    ``exponential_interfaces(10)`` (365 launches of ``day_kernel_any``, the
    annual file and every day's residual checked); then 30 days in this
    process, ``day_kernel_any`` against the twin on the winter state at full
-   width, its ms against the fixed nl=8 build's and its own at nl=8 on the
-   flagship winter state, the bound at 10 layers, and 5 days of
-   ``block_step(devices=[cuda:0] * 3)`` bitwise the unsharded block.
+   width, its ms (its all-shared form's, and both in float64) against the
+   fixed nl=8 build's and its own at nl=8 on the flagship winter state, in
+   turns, and the two ratios to the fixed build; each register build
+   against the all-shared form at the ends of its range (``build_times``);
+   the bound at 10 layers, and 5 days of ``block_step(devices=[cuda:0] *
+   3)`` bitwise the unsharded block.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -655,24 +665,32 @@ def check_kernel(label, case, regime, zd09_every, use_imp,
 
 
 def _ptxas_summary(log: str) -> list:
-    """(dtype, nl, imp, registers, spill stores, spill loads) per kernel
-    instance, from nvcc -Xptxas -v; ``nl`` is None for
-    ``day_kernel_any``."""
+    """(dtype, nl, imp, registers, stack frame, spill stores, spill loads)
+    per kernel instance, from nvcc -Xptxas -v.  For ``day_kernel_any``
+    ``nl`` is None, ``capacity`` is its layer capacity (0: the all-shared
+    form) and ``exact`` whether it is a register build's instance for nl
+    equal to the capacity."""
     out = []
     for block in re.split(r"Compiling entry function", log)[1:]:
         m = re.search(r"day_kernelI([fd])Li(\d+)ELb([01])E", block)
-        m_any = re.search(r"day_kernel_anyI([fd])Lb([01])E", block)
+        m_any = re.search(r"day_kernel_anyI([fd])Lb([01])ELi(\d+)ELb([01])E",
+                          block)
         regs = re.search(r"Used (\d+) registers", block)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", block)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", block)
         if (m or m_any) and regs:
-            out.append(dict(dtype="f32" if (m or m_any).group(1) == "f"
-                            else "f64",
-                            nl=int(m.group(2)) if m else None,
-                            imp=(m.group(3) if m else m_any.group(2)) == "1",
-                            registers=int(regs.group(1)),
-                            spill_stores=int(spill.group(1)) if spill else 0,
-                            spill_loads=int(spill.group(2)) if spill else 0))
+            entry = dict(dtype="f32" if (m or m_any).group(1) == "f"
+                         else "f64",
+                         nl=int(m.group(2)) if m else None,
+                         imp=(m.group(3) if m else m_any.group(2)) == "1",
+                         registers=int(regs.group(1)),
+                         stack_frame=int(spill.group(1)) if spill else 0,
+                         spill_stores=int(spill.group(2)) if spill else 0,
+                         spill_loads=int(spill.group(3)) if spill else 0)
+            if m_any:
+                entry.update(capacity=int(m_any.group(3)),
+                             exact=m_any.group(4) == "1")
+            out.append(entry)
     return out
 
 
@@ -2695,8 +2713,13 @@ def slab_loop_path(tmp, flag, dev, smi, kernel=True, **cfg_kw):
 
 #: Phase 3's layer counts without a build of their own, held on
 #: day_kernel_any alone; it is held at FIXED_NLS too, and the edge states
-#: at EDGE_NLS through both instances where the count has a build.
-LAYER_COUNTS = (3, 4, 5, 10, 15, 32)
+#: at EDGE_NLS through both instances where the count has a build.  They
+#: reach the ends of each register build's counts (kernels.ANY_BUILDS: in
+#: float32 3-8, 9-10, 12, 13-16, 20-22 and 24, 30-32; in float64 10-12; 8
+#: and 20 through any_nl, 10 in the edge states and phase 19) and the
+#: all-shared form beside them (11 in float32; 3, 9, 13 and up in
+#: float64).
+LAYER_COUNTS = (3, 9, 11, 12, 13, 16, 24, 30, 32)
 EDGE_NLS = (8, 10, 20)
 #: At this many layers or fewer, 5-7 % of the float32 varied columns end
 #: their day within KNIFE_EDGE_M of the base of the thick bottom layer,
@@ -2750,11 +2773,14 @@ def layer_count_checks(dev, n=N_CHECK):
                       f"max residual {res:.3e} mm, {n_edge} cells set aside")
     for nl in LAYER_COUNTS + day_kernel.FIXED_NLS:
         for dtype in (torch.float32, torch.float64):
+            form = day_kernel.kernel_instance(dtype, nl, any_nl=True)
             sms, blocks, threads, nbytes = day_kernel.instance_residency(
-                lib, dtype, nl, True, any_nl=True)
+                lib, dtype, nl, True, form=form)
             out["residency"][f"{str(dtype)[6:]} nl={nl}"] = dict(
-                resident_blocks_per_sm=blocks, threads_per_block=threads,
-                shared_bytes_per_block=nbytes,
+                form=form, resident_blocks_per_sm=blocks,
+                predicted_blocks_per_sm=day_kernel.any_residency(
+                    dtype, nl, form, N_FLAGSHIP)["warps"],
+                threads_per_block=threads, shared_bytes_per_block=nbytes,
                 rounds_at_flagship_cells=day_kernel.rounds(
                     N_FLAGSHIP, sms, blocks, threads))
     for nl in EDGE_NLS:
@@ -2858,6 +2884,34 @@ LAYER_YEAR = 1901
 LAYER_CHECK_DAYS = 30
 
 
+def build_times(dev, n):
+    """Each register build of ``day_kernel_any`` against its all-shared
+    form, in turns, at the fewest and the most layers it serves
+    (``kernels.ANY_BUILDS``), on ``n`` varied columns with imp
+    (``zd09_every=8``): ms of each and their ratio, by build and count."""
+    out = {}
+    for real, cap, counts in kernels.ANY_BUILDS:
+        dtype = torch.float32 if real == "float" else torch.float64
+        for nl in sorted({min(counts), max(counts)}):
+            soil, veg, params, forcing, geom, imp = check_case(
+                n, nl, dtype, dev, "varied")
+            forms = {f: (lambda f=f: day_kernel.hydrology_day_cuda(
+                soil, veg, params, forcing, geom, 1800.0, 48, imp=imp,
+                zd09_every=8, form=f)[0].h2osoi_liq)
+                for f in (cap, day_kernel.ALL_SHARED)}
+            times = {f: [] for f in forms}
+            for order in (list(forms), list(forms)[::-1]):
+                for f in order:
+                    times[f].append(_time_cuda(forms[f], 10)[0])
+            ms = {f: float(np.mean(v)) for f, v in times.items()}
+            out[f"{str(dtype)[6:]} capacity={cap} nl={nl}"] = dict(
+                ms=ms[cap], shared_ms=ms[day_kernel.ALL_SHARED],
+                ratio=ms[cap] / ms[day_kernel.ALL_SHARED])
+    print("register builds against the all-shared form, ms at the ends of "
+          "each build's range: " + json.dumps(out))
+    return out
+
+
 def layer_year_path(tmp, dev, smi, flag_winter, argv=(),
                     resolution_deg=0.5, **cfg_kw):
     """Phase 19, a global year at LAYER_YEAR_NL layers through the command
@@ -2871,10 +2925,12 @@ def layer_year_path(tmp, dev, smi, flag_winter, argv=(),
     January through ``block_step``, the kernel against the twin on the
     winter state they end in (day 31, imp and sw_abs; the cells of
     :func:`knife_edge_cells`, :func:`float32_noise_cells` and
-    :func:`rounding_explained` set aside); the kernel's ms there
-    against the fixed nl=8 build's and ``day_kernel_any``'s at nl=8 on the
-    flagship winter state ``flag_winter`` (``(args, kw)`` of phase 6's
-    winter day), in turns; the bound by operations; and 5 days of
+    :func:`rounding_explained` set aside); the kernel's ms there (its
+    all-shared form's, and both in float64 on the same state) against the
+    fixed nl=8 build's and ``day_kernel_any``'s at nl=8 on the flagship
+    winter state ``flag_winter`` (``(args, kw)`` of phase 6's winter day),
+    in turns, with the two ratios to the fixed build; :func:`build_times`;
+    the bound by operations; and 5 days of
     ``block_step(devices=[dev] * 3)``, bitwise the unsharded block with 3
     launches a day.  ``argv`` and ``cfg_kw`` are for rehearsals on a small
     grid.  Returns the summary."""
@@ -2965,21 +3021,34 @@ def layer_year_path(tmp, dev, smi, flag_winter, argv=(),
           f"(day {1 + LAYER_CHECK_DAYS}, imp and sw_abs): ok, max|kernel-"
           f"twin| h2osoi {err:.3e} mm ({int(edge.sum())} cells set aside)")
 
-    # Times in turns: day_kernel_any at nl=10 here, the fixed nl=8 build
-    # and day_kernel_any at nl=8 on the flagship winter state.
+    # Times in turns: day_kernel_any at nl=10 here (its register build, the
+    # all-shared form, and both in float64), the fixed nl=8 build and
+    # day_kernel_any at nl=8 on the flagship winter state.
     f_args, f_kw = flag_winter
-    forms = dict(
-        any_nl10=lambda: day_kernel.hydrology_day_cuda(
-            *args, **kw)[0].h2osoi_liq,
-        fixed_nl8=lambda: day_kernel.hydrology_day_cuda(
-            *f_args, **f_kw)[0].h2osoi_liq,
-        any_nl8=lambda: day_kernel.hydrology_day_cuda(
-            *f_args, any_nl=True, **f_kw)[0].h2osoi_liq)
+
+    def double(x):
+        return x.double()
+
+    args64 = tuple(a.map(double) for a in args[:4]) + args[4:]
+    kw64 = dict(kw, imp=kw["imp"].double(), sw_abs=kw["sw_abs"].double())
+
+    def day(a, k, **extra):
+        return lambda: day_kernel.hydrology_day_cuda(
+            *a, **k, **extra)[0].h2osoi_liq
+
+    shared = dict(form=day_kernel.ALL_SHARED)
+    forms = dict(any_nl10=day(args, kw), fixed_nl8=day(f_args, f_kw),
+                 any_nl8=day(f_args, f_kw, any_nl=True),
+                 shared_nl10=day(args, kw, **shared),
+                 f64_nl10=day(args64, kw64),
+                 f64_shared_nl10=day(args64, kw64, **shared))
     times = {k: [] for k in forms}
     for order in (list(forms), list(forms)[::-1]):
         for k in order:
             times[k].append(_time_cuda(forms[k], 20))
     ms = {k: float(np.mean([t[0] for t in v])) for k, v in times.items()}
+    ratios = dict(nl10=ms["any_nl10"] / ms["fixed_nl8"],
+                  nl8=ms["any_nl8"] / ms["fixed_nl8"])
     plain_ms = _time_cuda(lambda: day_kernel.hydrology_day_plain(
         *args, **kw)[0].h2osoi_liq, 1)[0]
     bound = day_bound(args, kw["imp"], cfg.zd09_every)
@@ -2988,12 +3057,18 @@ def layer_year_path(tmp, dev, smi, flag_winter, argv=(),
         lib, dtype, LAYER_YEAR_NL, True) if dev.type == "cuda" else \
         (0, 0, 0, 0)
     print(f"{LAYER_YEAR_NL}-layer kernel day: {ms['any_nl10']:.3f} ms "
-          f"({n} cells, winter state); on the flagship winter state the "
-          f"fixed nl=8 build {ms['fixed_nl8']:.3f} ms, day_kernel_any at "
-          f"nl=8 {ms['any_nl8']:.3f} ms; plain twin {plain_ms:.1f} ms; "
-          f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}; "
-          f"{blocks} blocks of {threads} threads an SM ({smi}); passes: "
-          + json.dumps(times))
+          f"({n} cells, winter state; the all-shared form "
+          f"{ms['shared_nl10']:.3f} ms; float64 {ms['f64_nl10']:.3f} ms, "
+          f"all-shared {ms['f64_shared_nl10']:.3f} ms); on the flagship "
+          f"winter state the fixed nl=8 build {ms['fixed_nl8']:.3f} ms, "
+          f"day_kernel_any at nl=8 {ms['any_nl8']:.3f} ms; plain twin "
+          f"{plain_ms:.1f} ms; bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']}; {blocks} blocks of {threads} threads an SM "
+          f"({smi}); passes: " + json.dumps(times))
+    print(f"day_kernel_any against the fixed nl=8 build in the same passes: "
+          f"{ratios['nl10']:.3f} at nl=10, {ratios['nl8']:.3f} at nl=8 "
+          f"({smi})")
+    builds = build_times(dev, n) if dev.type == "cuda" else {}
 
     # The resident slabs at nl=10: bitwise the unsharded block.
     short = block.map(lambda x: x[:SLAB_DAYS])
@@ -3018,6 +3093,9 @@ def layer_year_path(tmp, dev, smi, flag_winter, argv=(),
                 file_max_residual=file_res, prep_s=prep_s,
                 max_abs_err=err, set_aside=int(edge.sum()), ms=ms["any_nl10"],
                 fixed_nl8_ms=ms["fixed_nl8"], any_nl8_ms=ms["any_nl8"],
+                shared_ms=ms["shared_nl10"], f64_ms=ms["f64_nl10"],
+                f64_shared_ms=ms["f64_shared_nl10"], ratios=ratios,
+                builds=builds,
                 plain_ms=plain_ms, bound_ms=bound["bound_ms"],
                 bound_by=bound["bound_by"],
                 arithmetic_per_cell_day=bound["arithmetic_per_cell_day"],
@@ -3029,6 +3107,68 @@ def layer_year_path(tmp, dev, smi, flag_winter, argv=(),
                 if blocks else None,
                 slab_launches=slab_launches, slabs=k,
                 slabs_bitwise_unsharded=True)
+
+
+def build_phase():
+    """Phase 2: build the day-kernel library and print the build, each
+    unit's seconds and, for every kernel instance, its registers, stack
+    frame and spills and what the card holds of it.  Returns the
+    instances' records (:func:`_ptxas_summary` with the residency)."""
+    t0 = time.perf_counter()
+    kernels.day_kernel_lib()
+    load_s = time.perf_counter() - t0
+    info = kernels.build_info
+    print(f"build: nvcc {info.get('seconds', 0.0):.1f} s, load "
+          f"{load_s:.1f} s ({info.get('path', 'library already built')}); "
+          f"seconds by unit: " + json.dumps(
+              {k: round(v, 1) for k, v in info.get("units", {}).items()}))
+    ptxas = _ptxas_summary(info.get("log", ""))
+    lib = kernels.day_kernel_lib()
+    for p in ptxas:
+        dtype = torch.float32 if p["dtype"] == "f32" else torch.float64
+        form, nl = day_kernel.FIXED, p["nl"]
+        if nl is None:
+            # day_kernel_any: a register build's exact instance at its
+            # capacity, its other one at the fewest layers it serves (below
+            # the capacity), the all-shared form at the 10-layer count.
+            form = p["capacity"]
+            served = day_kernel.any_capacities(dtype).get(form)
+            nl = (form if p["exact"] else min(min(served), form - 1)) \
+                if form else LAYER_YEAR_NL
+            p.update(at_nl=nl, predicted=day_kernel.any_residency(
+                dtype, nl, form, N_FLAGSHIP, with_imp=p["imp"]))
+        sms, blocks, threads, nbytes = day_kernel.instance_residency(
+            lib, dtype, nl, p["imp"], form=form)
+        p.update(sms=sms, resident_blocks_per_sm=blocks,
+                 threads_per_block=threads, shared_bytes_per_block=nbytes,
+                 rounds_at_flagship_cells=day_kernel.rounds(
+                     N_FLAGSHIP, sms, blocks, threads))
+        print("ptxas: " + json.dumps(p))
+    return ptxas
+
+
+def any_builds(ptxas, times):
+    """Each form of ``day_kernel_any`` with imp, for the kernels line:
+    its range, registers, spills and resident warps an SM (phase 2) and
+    its ms against the all-shared form (:func:`build_times`)."""
+    out = {}
+    for p in ptxas:
+        if p["nl"] is not None or not p["imp"]:
+            continue
+        form = p["capacity"]
+        dtype = torch.float32 if p["dtype"] == "f32" else torch.float64
+        name = f"{str(dtype)[6:]} " + (f"capacity={form}" if form
+                                       else "all-shared")
+        build = out.setdefault(name, dict(
+            counts=list(day_kernel.any_capacities(dtype)[form])
+            if form else None,
+            times={k.split(" ")[-1]: v for k, v in times.items()
+                   if k.startswith(name + " ")}))
+        build["exact" if p.get("exact") else "any"] = dict(
+            at_nl=p["at_nl"], registers=p["registers"],
+            spill_stores=p["spill_stores"], spill_loads=p["spill_loads"],
+            resident_blocks_per_sm=p["resident_blocks_per_sm"])
+    return out
 
 
 def main() -> None:
@@ -3054,24 +3194,7 @@ def main() -> None:
         clock[0] = now
 
     # 2. Build.
-    t0 = time.perf_counter()
-    kernels.day_kernel_lib()
-    load_s = time.perf_counter() - t0
-    info = kernels.build_info
-    print(f"build: nvcc {info.get('seconds', 0.0):.1f} s, load "
-          f"{load_s:.1f} s ({info.get('path', 'library already built')})")
-    ptxas = _ptxas_summary(info.get("log", ""))
-    lib = kernels.day_kernel_lib()
-    for p in ptxas:
-        # day_kernel_any's residency at the 10-layer year's count.
-        sms, blocks, threads, nbytes = day_kernel.instance_residency(
-            lib, torch.float32 if p["dtype"] == "f32" else torch.float64,
-            p["nl"] or LAYER_YEAR_NL, p["imp"], any_nl=p["nl"] is None)
-        p.update(sms=sms, resident_blocks_per_sm=blocks,
-                 threads_per_block=threads, shared_bytes_per_block=nbytes,
-                 rounds_at_flagship_cells=day_kernel.rounds(
-                     N_FLAGSHIP, sms, blocks, threads))
-        print("ptxas: " + json.dumps(p))
+    ptxas = build_phase()
 
     lap("1-2")
 
@@ -3593,6 +3716,11 @@ def main() -> None:
                  bound_by=layer_year["bound_by"], library_ms=None,
                  fixed_nl8_ms=layer_year["fixed_nl8_ms"],
                  any_nl8_ms=layer_year["any_nl8_ms"],
+                 ratios_to_fixed_nl8=layer_year["ratios"],
+                 shared_ms=layer_year["shared_ms"],
+                 f64_ms=layer_year["f64_ms"],
+                 f64_shared_ms=layer_year["f64_shared_ms"],
+                 builds=any_builds(ptxas, layer_year["builds"]),
                  year_s=layer_year["year_s"],
                  max_residual=layer_year["max_residual"],
                  rounds=layer_year["rounds"],

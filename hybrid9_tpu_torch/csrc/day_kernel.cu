@@ -1075,42 +1075,133 @@ int with_instance(int dtype_bytes, int nl, int with_imp, F f) {
 }
 
 // ---------------------------------------------------------------------------
-// The instance for any layer count.
+// The instance for any layer count: day_kernel_any.
 //
 // The Pallas kernel takes any nl (pallas_day.py:156 reads it from the
 // state's shape); the instances above are built for nl = 8 and 20 only.
-// day_kernel_any takes nl as a run-time argument, one build per dtype and
-// imp flag, and serves every other layer count from 3 up (infiltration
-// reads the top three layers, as in the JAX package), and nl = 8 or 20
-// where the caller asks for it.  It is the same day, step for step in the
-// twin's order, with every layer loop rolled:
-//  - every vector of a thread lives in dynamic shared memory, laid out
-//    [slot][thread] as in the rolled builds: the parameter and root rows (and
-//    the imp row), the cached zq and sy, the lagged smp, theta (in the slots
-//    of r), the bands, the solve's scratch and h: 16 nl + 4 words a thread,
-//    nl more with imp;
-//  - the geometry comes in as the doubles zi[nl + 2], dz[nl], zc[nl] on the
-//    device; each block forms the derived entries in double, rounds each
-//    once and keeps them in shared memory (8 nl + 4 words a block), as the
-//    host forms them for the fixed instances;
-//  - a block holds one warp where that fits a block's shared memory, else
-//    16, 8, ... threads (AnyInstance::threads); past one thread the layer
-//    count is refused (the wrapper names the cap: some 1,160 layers in
-//    float64 and 2,320 in float32);
-//  - rows [n, nl] are read and written one element at a time, so a row may
-//    start on any element: slab views x[lo:hi] of a [n, 10] float32 tensor
-//    start on 8-byte addresses half the time.
-// What bounds it is what bounds the rolled builds, a cell's dependent chain,
-// with fewer warps an SM than the main-path build (9 at nl = 10 in float32
-// with imp, so the 0.5-degree grid takes two rounds): PERF.md, section 6.
+// day_kernel_any takes nl as a run-time argument and serves every other
+// layer count from 3 up (infiltration reads the top three layers, as in the
+// JAX package), and nl = 8 or 20 where the caller asks for it.  It is the
+// same day, step for step in the twin's order, as the fixed builds.
+//
+// What bounds it is what bounds them (the note at the head of this file): a
+// cell's long dependent chain, so the warps an SM holds and the rounds of
+// blocks the grid takes.  A grid that needs a second round, however small,
+// pays a whole chain again: 14 warps an SM at nl = 10 ran no faster than 9.
+// So each form is sized to hold the 0.5-degree grid (68,608 cells at 10
+// layers, 2,144 warps) in one round where it can: 17 warps on 132 SMs.
+// It comes in two forms.
+//  - Register builds, one per layer capacity CAP (AnyBuild, below), each
+//    taking any nl up to CAP, one warp a block.  As in the main-path
+//    build, h and the solve's pivots, multipliers and dw live in registers:
+//    the loops over them are unrolled to CAP, the layers past nl masked.
+//    The loops over the shared vectors stay rolled, nl their trip count,
+//    which keeps the substep's code near the main-path build's.  The
+//    geometry comes in the launch's parameters (Geom<Real, CAP>, formed on
+//    the host in double and rounded once, as for the fixed builds; 1.4 KB
+//    at the largest capacity, inside even the 4 KB of older cards): no
+//    shared memory, no __syncthreads.  The imp row is read from global
+//    memory (L1).  Shared memory holds only what a rolled loop indexes:
+//    the parameter and root rows, zq and the soil rows' bands a, b, c, r
+//    (theta in r's slots), 10 nl - 1 words a thread; any_day says what left
+//    it.  Each build also holds an instance for nl equal to its capacity,
+//    nl a constant there (no masks, no selects), which the launch takes at
+//    that count.
+//  - The all-shared form: every vector of a thread in shared memory (14 nl
+//    - 1 words, nl more with imp) and the geometry formed in each block
+//    from float64 device data (8 nl + 4 words a block); one warp a block
+//    where that fits a block's shared memory, else 16, 8, ... threads; past
+//    the caps (2,324 layers in float32, 1,161 in float64) the count is
+//    refused.
+// Each register build serves the counts hybrid9_tpu_torch/kernels.py::
+// ANY_BUILDS lists for it, where it measured faster than the all-shared
+// form; the all-shared form serves the rest (scripts/day_kernel_forms.py).  At 10 layers, 68,608 cells, winter
+// state with imp and sw_abs, the capacity-10 build takes 2.04 ms (the
+// all-shared form 2.86 ms, its earlier layout 3.65 ms): 1.28x the fixed nl=8
+// build's flagship winter day in the same passes, and the capacity-8 build
+// at nl = 8 0.98x (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 19).
+// Shared memory is laid out layer by layer: word (i K + k) T + t holds
+// vector k at layer i for thread t of a block of T, K vectors a layer.  A
+// warp reads 32 consecutive words (no bank conflict), and every vector of
+// a layer lies at a compile-time offset from the layer's first word, so a
+// rolled loop keeps one address.  Rows [n, nl] move in 16-byte words where
+// a row's start and length allow it, else an element at a time, so slab
+// views on 8-byte addresses go in; the smp row goes out an element at a
+// time from the last substep.
 // ---------------------------------------------------------------------------
 
-template <typename Real>
+// How a register build is made, by its capacity: `min_blocks` is the
+// resident one-warp blocks an SM that __launch_bounds__ asks for, which
+// caps the registers (17: 96, 16: 128, 12: 168; 255 otherwise).  Each
+// build's words a thread at nl layers are 10 nl - 1.  As built, float32
+// with imp (registers and bytes spilt, stored / loaded, of the instance at
+// the capacity and of the one for fewer layers; words and warps an SM at
+// the capacity; chip_smoke.py phase 2, NVIDIA H100 80GB HBM3):
+//   Real    CAP  serves  registers  spilt at CAP; below  words  warps
+//   float    8    3-8      96       148/188; 108/148     79     20
+//   float   10    9-10     96       228/276; 144/196     99     17
+//   float   12    12      128       144/172;   8/8      119     14
+//   float   16   13-16    168       108/128;   0        159     10
+//   float   24   20-22,24 255/226     0;       0        239      7
+//   float   32   30-32    255       364/392;   0        319      5
+//   double  12   10-12    255       392/536;  24/24      99(10)  8(10)
+// Float32 nl = 11, 17-19, 23, 25-29 and above 32, and float64 outside
+// 10-12, run faster on the all-shared form.
+template <typename Real, int CAP>
+struct AnyBuild {
+  static constexpr int min_blocks = 1;
+};
+template <>
+struct AnyBuild<float, 8> {
+  static constexpr int min_blocks = 17;
+};
+template <>
+struct AnyBuild<float, 10> {
+  static constexpr int min_blocks = 17;
+};
+template <>
+struct AnyBuild<float, 12> {
+  static constexpr int min_blocks = 16;
+};
+template <>
+struct AnyBuild<float, 16> {
+  static constexpr int min_blocks = 12;
+};
+
+// The register builds, (Real, CAP), each a unit of compilation of its own
+// (hybrid9_tpu_torch/kernels.py::ANY_BUILDS lists the same).
+#define H9_ANY_BUILDS(X)                                          \
+  X(float, 8) X(float, 10) X(float, 12) X(float, 16) X(float, 24) \
+      X(float, 32) X(double, 12)
+
+// A thread's slots of one layer in shared memory, in this order, and its
+// words in all.  The aquifer row's b, r and a (the sub-diagonal a[nl - 1])
+// are held in registers, so the last layer has no slot a.  The register
+// builds keep gam, h, bet and dw in registers and read imp from global
+// memory: those slots are the all-shared form's only.
+template <bool WITH_IMP, int CAP>
+struct AnyLayout {
+  static constexpr bool all_shared = CAP == 0;
+  static constexpr int b = 0, r = 1, ts = 2, bs = 3, hk = 4, ps = 5;
+  static constexpr int rootr = 6, zq = 7;
+  static constexpr int gam = 8, h = 9, bet = 10, dw = 11, imp = 12;
+  static constexpr int c = all_shared ? imp + (WITH_IMP ? 1 : 0) : gam;
+  static constexpr int a = c + 1;
+  static constexpr int per_layer = a + 1;
+  static constexpr int words(int nl) { return per_layer * nl - 1; }
+};
+
+// Words of shared memory of the all-shared form's block geometry.
+constexpr int any_geom_words(int nl) { return 8 * nl + 4; }
+
+template <typename Real, int CAP>
 struct ArgsAny {
   const Real* in[N_IN];
   Real* out[N_OUT];
   int stride[N_IN];    // elements from one cell to the next, per input
-  const double* geom;  // zi[nl + 2], dz[nl], zc[nl] in mm, on the device
+  Geom<Real, (CAP > 0 ? CAP : 1)> g;  // a register build's geometry
+  const double* geom;  // the all-shared form's: zi[nl + 2], dz[nl], zc[nl]
+                       // in mm, on the device
   double dt;
   int nl;
   int n;
@@ -1120,14 +1211,8 @@ struct ArgsAny {
   Real* wt_trace;      // [nisurf]: the focus cell's zwt after each substep
 };
 
-// Words of shared memory: the block's geometry, and each thread's vectors.
-constexpr int any_geom_words(int nl) { return 8 * nl + 4; }
-constexpr int any_thread_words(int nl, bool with_imp) {
-  return 16 * nl + 4 + (with_imp ? nl : 0);
-}
-
-// The block's geometry in shared memory, each entry rounded once from its
-// double value (the fields of Geom).
+// The all-shared form's geometry in shared memory, each entry rounded once
+// from its double value (the fields of Geom).
 template <typename Real>
 struct GeomAny {
   const Real* zi;     // [nl + 2] interface depths (mm)
@@ -1140,7 +1225,8 @@ struct GeomAny {
   const Real* dzc;    // [nl] zc[i+1] - zc[i], i < nl - 1
 };
 
-// n values of one thread in its shared-memory slots p, p + stride, ...
+// One vector of a thread in its shared-memory slots p, p + stride, ...
+// The *_at forms take an index that may differ between threads.
 template <typename Real>
 struct VecAny {
   Real* p;
@@ -1149,22 +1235,129 @@ struct VecAny {
   __device__ __forceinline__ void set(int i, Real x) const {
     p[i * stride] = x;
   }
+  __device__ __forceinline__ Real get_at(int j) const { return get(j); }
+  __device__ __forceinline__ void set_at(int j, Real x) const { set(j, x); }
+  __device__ __forceinline__ void add_at(int j, Real x) const {
+    set(j, get(j) + x);
+  }
 };
 
-// soilwater.water_table_index over nl interfaces.
-template <typename Real>
-__device__ __forceinline__ int water_table_index_any(
-    Real zwt, const GeomAny<Real>& g, int nl) {
+// N values of one thread in registers: get and set take compile-time
+// indices (after unrolling; an index past N, in masked code, reads the
+// last); the *_at forms select over every entry.
+template <typename Real, int N>
+struct RegVec {
+  Real v[N];
+  __device__ __forceinline__ explicit RegVec(const VecAny<Real>&) {}
+  __device__ __forceinline__ Real get(int i) const {
+    return v[i < N ? i : N - 1];
+  }
+  __device__ __forceinline__ void set(int i, Real x) {
+    v[i < N ? i : N - 1] = x;
+  }
+  __device__ __forceinline__ Real get_at(int j) const {
+    Real x = v[0];
+#pragma unroll
+    for (int k = 1; k < N; ++k)
+      if (k == j) x = v[k];
+    return x;
+  }
+  __device__ __forceinline__ void set_at(int j, Real x) {
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      if (k == j) v[k] = x;
+  }
+  __device__ __forceinline__ void add_at(int j, Real x) {
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      if (k == j) v[k] = v[k] + x;
+  }
+};
+
+template <bool C, typename A, typename B>
+struct Pick {
+  using type = A;
+};
+template <typename A, typename B>
+struct Pick<false, A, B> {
+  using type = B;
+};
+
+// The imp row: staged in shared slots, or read from global memory (L1) at
+// each use.
+template <typename Real, bool SHARED>
+struct ImpRow {
+  const Real* g;
+  VecAny<Real> s;
+  __device__ __forceinline__ Real get(int i) const {
+    return SHARED ? s.get(i) : __ldg(g + i);
+  }
+};
+
+// The row p[0, nl) into v, in 16-byte words where the row's start and
+// length allow it, else an element at a time; TOP > 0 unrolls the loop to
+// TOP (a register vector), 0 keeps it rolled.
+template <int TOP, typename Real, typename V>
+__device__ __forceinline__ void read_row(const Real* p, int nl, V& v) {
+  constexpr int PER = 16 / sizeof(Real);
+  if (nl % PER == 0 && reinterpret_cast<size_t>(p) % 16 == 0) {
+#pragma unroll(TOP > 0 ? TOP / PER : 1)
+    for (int k = 0; k < (TOP > 0 ? TOP : nl); k += PER) {
+      if (TOP > 0 && k >= nl) continue;
+      Real w[PER];
+      load16(p + k, w);
+#pragma unroll
+      for (int j = 0; j < PER; ++j) v.set(k + j, w[j]);
+    }
+  } else {
+#pragma unroll(TOP > 0 ? TOP : 1)
+    for (int i = 0; i < (TOP > 0 ? TOP : nl); ++i) {
+      if (TOP > 0 && i >= nl) continue;
+      v.set(i, __ldg(p + i));
+    }
+  }
+}
+
+// v into the row p[0, nl), as read_row reads it.
+template <int TOP, typename Real, typename V>
+__device__ __forceinline__ void write_row(Real* p, int nl, const V& v) {
+  constexpr int PER = 16 / sizeof(Real);
+  if (nl % PER == 0 && reinterpret_cast<size_t>(p) % 16 == 0) {
+#pragma unroll(TOP > 0 ? TOP / PER : 1)
+    for (int k = 0; k < (TOP > 0 ? TOP : nl); k += PER) {
+      if (TOP > 0 && k >= nl) continue;
+      Real w[PER];
+#pragma unroll
+      for (int j = 0; j < PER; ++j) w[j] = v.get(k + j);
+      store16(p + k, w);
+    }
+  } else {
+#pragma unroll(TOP > 0 ? TOP : 1)
+    for (int i = 0; i < (TOP > 0 ? TOP : nl); ++i) {
+      if (TOP > 0 && i >= nl) continue;
+      p[i] = v.get(i);
+    }
+  }
+}
+
+// soilwater.water_table_index over nl interfaces: unrolled to the
+// capacity CAP where there is one (the interfaces past nl masked), so
+// each compare takes its interface straight from the launch's parameters.
+template <int CAP, typename Real, typename G>
+__device__ __forceinline__ int water_table_index_any(Real zwt, const G& g,
+                                                     int nl) {
   int jwt = 0;
-  for (int i = 1; i <= nl; ++i) jwt += (zwt > g.zi_m[i]) ? 1 : 0;
+#pragma unroll(CAP > 0 ? CAP : 1)
+  for (int i = 1; i <= (CAP > 0 ? CAP : nl); ++i)
+    jwt += (i <= nl && zwt > g.zi_m[i]) ? 1 : 0;
   return jwt;
 }
 
 // soilwater._equilibrium_profile, one layer (equilibrium_zq's body).
-template <typename Real>
+template <typename Real, typename G>
 __device__ __forceinline__ Real equilibrium_zq_any(int i, Real zwtmm, Real ts,
                                                    Real ps, Real bs,
-                                                   const GeomAny<Real>& g) {
+                                                   const G& g) {
   const Real one = Real(1);
   const Real zlo = g.zi[i], zhi = g.zi[i + 1];
   const bool mask_sat = zwtmm <= zlo;
@@ -1194,10 +1387,9 @@ __device__ __forceinline__ Real equilibrium_zq_any(int i, Real zwtmm, Real ts,
 }
 
 // soilwater._aquifer_zq: zero unless the table is below the column.
-template <typename Real>
+template <typename Real, typename G>
 __device__ __forceinline__ Real aquifer_zq_any(Real zwtmm, int jwt, Real tsl,
-                                               Real psl, Real bl,
-                                               const GeomAny<Real>& g,
+                                               Real psl, Real bl, const G& g,
                                                int nl) {
   if (jwt != nl) return Real(0);
   const Real one = Real(1);
@@ -1209,105 +1401,74 @@ __device__ __forceinline__ Real aquifer_zq_any(Real zwtmm, int jwt, Real tsl,
   return vmax(Real(SMPMIN), psl * pw(vmax(vol_aq / tsl, Real(0.01)), -bl));
 }
 
-template <typename Real, bool WITH_IMP>
-__global__ void __launch_bounds__(BLOCK, 1)
-    day_kernel_any(const ArgsAny<Real> args) {
-  extern __shared__ __align__(16) unsigned char h9_shared[];
-  const int nl = args.nl;
-  const int M = nl + 1;  // unknowns: the layers and the aquifer
-  const int T = blockDim.x;
-
-  // The block's geometry, formed in double and rounded once, before any
-  // thread of the block returns.
-  Real* const zi = reinterpret_cast<Real*>(h9_shared);
-  Real* const zi_m = zi + nl + 2;
-  Real* const dzi = zi_m + nl + 2;
-  Real* const dz = dzi + nl;
-  Real* const thden = dz + nl;
-  Real* const dz_dt = thden + nl;
-  Real* const zc = dz_dt + nl;
-  Real* const dzc = zc + nl;
-  {
-    const double* zid = args.geom;
-    const double* dzd = zid + nl + 2;
-    const double* zcd = dzd + nl;
-    for (int i = threadIdx.x; i < nl + 2; i += T) {
-      zi[i] = static_cast<Real>(zid[i]);
-      zi_m[i] = static_cast<Real>(zid[i] / 1000.0);
-    }
-    for (int i = threadIdx.x; i < nl; i += T) {
-      dzi[i] = static_cast<Real>(zid[i + 1] - zid[i]);
-      dz[i] = static_cast<Real>(dzd[i]);
-      thden[i] = static_cast<Real>(dzd[i] * RHOW / 1.0e3);
-      dz_dt[i] = static_cast<Real>(dzd[i] / args.dt);
-      zc[i] = static_cast<Real>(zcd[i]);
-      dzc[i] = static_cast<Real>(i + 1 < nl ? zcd[i + 1] - zcd[i] : 0.0);
-    }
-  }
-  __syncthreads();
-  const GeomAny<Real> g{zi, zi_m, dzi, dz, thden, dz_dt, zc, dzc};
+// One cell's day, the body of day_kernel_any: g is the geometry (Geom in
+// the launch's parameters, or GeomAny in shared memory), words the first
+// of the block's thread slots, T the block's threads.
+//
+// What leaves shared memory against a plain transcription of the day:
+// the specific yields, recomputed where a walk reads them (at the table of
+// the last refresh, the bottom layer's kept in a register: the same
+// values); the lagged potential smp, whose only reads are the next
+// substep's beta (summed in the row loop, in the same order), the
+// recharge's layer jm (kept as the row loop passes it) and the day's
+// output (written in the last substep's row loop); and the aquifer row of
+// the tridiagonal system (b, r and its sub-diagonal a[nl - 1], with the
+// pivot and dw of that row), which the solve takes in registers.
+template <typename Real, bool WITH_IMP, int CAP, bool EXACT, typename G>
+__device__ __forceinline__ void any_day(const ArgsAny<Real, CAP>& args,
+                                        const G& g, const Real dt,
+                                        const Real qlim, Real* const words,
+                                        const int T) {
+  using L = AnyLayout<WITH_IMP, CAP>;
+  constexpr bool REG = CAP > 0;
+  // The loops over register vectors run to the capacity, the layers past
+  // nl masked (unrolled, UN), or to nl (the all-shared form).
+  constexpr int UN = REG ? CAP : 1;
+  // EXACT: the instance for nl equal to the capacity, nl a constant.
+  const int nl = EXACT ? CAP : args.nl;
+  const int top = REG ? CAP : nl;
 
   // One cell a thread; the last block masks its ragged tail.
   const int cell = blockIdx.x * T + threadIdx.x;
   if (cell >= args.n) return;
-  const Real dt = static_cast<Real>(args.dt);
-  const Real qlim = static_cast<Real>(10.0 / args.dt);
   const Real one = Real(1), zero = Real(0);
   const bool cached = args.zd09_every > 1;
 
-  // The thread's vectors, one after another in its slots.
-  Real* next = dzc + nl + threadIdx.x;
-  auto take = [&](int words) -> VecAny<Real> {
-    const VecAny<Real> v{next, T};
-    next += words * T;
-    return v;
+  // The thread's vectors: the slot of vector k at layer i is
+  // words[(i * per_layer + k) * T + thread].
+  Real* const first = words + threadIdx.x;
+  auto slot = [&](int k) {
+    return VecAny<Real>{first + k * T, L::per_layer * T};
   };
-  const VecAny<Real> p_ts = take(nl);
-  const VecAny<Real> p_bs = take(nl);
-  const VecAny<Real> p_hk = take(nl);
-  const VecAny<Real> p_ps = take(nl);
-  const VecAny<Real> p_rootr = take(nl);
-  const VecAny<Real> p_imp = take(WITH_IMP ? nl : 0);
-  const VecAny<Real> zq = take(nl);
-  const VecAny<Real> sy = take(nl);
-  const VecAny<Real> smp = take(nl);
-  // a[i] and gam[i] are stored at i - 1 (a[0] and gam[0] are never read);
-  // c[nl] is zero and never read.  theta takes the slots of r: a row's
-  // right-hand side is written after the last read of its theta.
-  const VecAny<Real> a = take(nl);
-  const VecAny<Real> b = take(M);
-  const VecAny<Real> c = take(nl);
-  const VecAny<Real> r = take(M);
+  using Vec = typename Pick<REG, RegVec<Real, (REG ? CAP : 1)>,
+                            VecAny<Real>>::type;
+  const VecAny<Real> p_ts = slot(L::ts), p_bs = slot(L::bs),
+                     p_hk = slot(L::hk), p_ps = slot(L::ps),
+                     p_rootr = slot(L::rootr), zq = slot(L::zq);
+  // The soil rows of the tridiagonal system: a[i] and gam[i] are stored at
+  // i - 1 (a[0] and gam[0] are never read).  theta takes the slots of r: a
+  // row's right-hand side is written after the last read of its theta.
+  const VecAny<Real> a = slot(L::a), b = slot(L::b), c = slot(L::c),
+                     r = slot(L::r);
   const VecAny<Real> theta = r;
-  const VecAny<Real> gam = take(nl);
-  const VecAny<Real> bet = take(M);
-  const VecAny<Real> dw = take(M);
-  const VecAny<Real> h = take(nl);
+  Vec gam(slot(L::gam)), bet(slot(L::bet)), dw(slot(L::dw)), h(slot(L::h));
 
   auto at = [&](int k) -> const Real* {
     return args.in[k] + static_cast<size_t>(cell) * args.stride[k];
   };
   auto vec = [&](int k) -> Real { return __ldg(at(k)); };
+  const ImpRow<Real, !REG> p_imp{WITH_IMP ? at(I_IMP) : nullptr,
+                                 slot(L::imp)};
+  Real* const smp_out = args.out[O_SMP] + static_cast<size_t>(cell) * nl;
 
-  // The rows, an element at a time, and the carry.
-  {
-    const Real *r_ts = at(I_TS), *r_bs = at(I_BS), *r_hk = at(I_HK),
-               *r_ps = at(I_PS), *r_rootr = at(I_ROOTR), *r_h = at(I_H),
-               *r_smp = at(I_SMP);
-    const Real* r_imp = WITH_IMP ? at(I_IMP) : nullptr;
-    for (int i = 0; i < nl; ++i) {
-      p_ts.set(i, __ldg(r_ts + i));
-      p_bs.set(i, __ldg(r_bs + i));
-      p_hk.set(i, __ldg(r_hk + i));
-      p_ps.set(i, __ldg(r_ps + i));
-      p_rootr.set(i, __ldg(r_rootr + i));
-      if (WITH_IMP) p_imp.set(i, __ldg(r_imp + i));
-      h.set(i, __ldg(r_h + i));
-      smp.set(i, __ldg(r_smp + i));
-      zq.set(i, zero);
-      sy.set(i, zero);
-    }
-  }
+  // The rows and the carry.
+  read_row<0>(at(I_TS), nl, p_ts);
+  read_row<0>(at(I_BS), nl, p_bs);
+  read_row<0>(at(I_HK), nl, p_hk);
+  read_row<0>(at(I_PS), nl, p_ps);
+  read_row<0>(at(I_ROOTR), nl, p_rootr);
+  if (WITH_IMP && !REG) read_row<0>(at(I_IMP), nl, p_imp.s);
+  read_row<(REG ? CAP : 0)>(at(I_H), nl, h);
   Real zwt = vec(I_ZWT), wa = vec(I_WA);
   Real evap = zero, evap_grnd = zero, rnf = zero, max_res = zero;
 
@@ -1361,23 +1522,52 @@ __global__ void __launch_bounds__(BLOCK, 1)
               : Real(128.0);
   }
 
+  // et.dual_source_et's root-zone wetness of the first substep, from the
+  // lagged potential of the input; each row loop sums the next one's.
+  auto beta_term = [&](int i, Real smp_i) -> Real {
+    const Real beta_l = one - (smp_i - g.zc[i]) / Real(-150000.0);
+    return p_rootr.get(i) * clip(beta_l, zero, one);
+  };
+  Real beta = zero;
+  {
+    const Real* const smp_in = at(I_SMP);
+#pragma unroll 1
+    for (int i = 0; i < nl; ++i) {
+      const Real term = beta_term(i, __ldg(smp_in + i));
+      beta = (i == 0) ? term : beta + term;
+    }
+  }
+
+  // The specific yields at the table of the last refresh (zwtmm_sy), the
+  // bottom layer's kept.
+  Real zwtmm_sy = zero, rous_sy = zero;
+  auto sy = [&](int i) -> Real {
+    return specific_yield(p_ts.get(i), p_ps.get(i), p_bs.get(i), zwtmm_sy);
+  };
+
   for (int it = 0; it < args.nisurf; ++it) {
     // ZD09 and specific-yield profiles at the current table: every
     // substep, or every zd09_every substeps from it = 0.
     if (!cached || it % args.zd09_every == 0) {
-      const Real zwtmm0 = Real(1000.0) * zwt;
+      zwtmm_sy = Real(1000.0) * zwt;
+#pragma unroll 1
       for (int i = 0; i < nl; ++i) {
         const Real ts = p_ts.get(i), ps = p_ps.get(i), bs = p_bs.get(i);
-        zq.set(i, equilibrium_zq_any(i, zwtmm0, ts, ps, bs, g));
-        sy.set(i, specific_yield(ts, ps, bs, zwtmm0));
+        zq.set(i, equilibrium_zq_any(i, zwtmm_sy, ts, ps, bs, g));
       }
+      rous_sy = sy(nl - 1);
     }
 
     // --- hydrology.substep_values --------------------------------------
+    // (Unrolled, the divisions of every layer go ahead of the masks, so
+    // that they overlap; past nl their results are not kept.)
     Real sum_h = h.get(0);
-    for (int i = 0; i < nl; ++i) {
+#pragma unroll(UN)
+    for (int i = 0; i < top; ++i) {
       const Real hi = h.get(i);
-      theta.set(i, hi / g.thden[i]);
+      const Real th = hi / g.thden[i];
+      if (REG && i >= nl) continue;
+      theta.set(i, th);
       if (i > 0) sum_h = sum_h + hi;
     }
     const Real w0 = rain * dt + wa + sum_h;
@@ -1385,13 +1575,7 @@ __global__ void __launch_bounds__(BLOCK, 1)
     const Real fsat = f_max * ex(Real(-0.5 * FFF) * zwt);
     Real qflx_surf = fsat * rain;
 
-    // et.dual_source_et
-    Real beta = zero;
-    for (int i = 0; i < nl; ++i) {
-      const Real beta_l = one - (smp.get(i) - g.zc[i]) / Real(-150000.0);
-      const Real term = p_rootr.get(i) * clip(beta_l, zero, one);
-      beta = (i == 0) ? term : beta + term;
-    }
+    // et.dual_source_et, with beta from the last row loop.
     const Real ts0 = p_ts.get(0);
     const Real th0 = theta.get(0);
     const Real rootr0 = p_rootr.get(0);
@@ -1459,9 +1643,10 @@ __global__ void __launch_bounds__(BLOCK, 1)
 
     // --- soilwater.soil_water_update ------------------------------------
     const Real zwtmm = Real(1000.0) * zwt;
-    const int jwt = water_table_index_any(zwt, g, nl);
+    const int jwt = water_table_index_any<CAP>(zwt, g, nl);
     const bool in_col = jwt < nl;
     const bool below = !in_col;
+    const int jm = jwt - 1 > 0 ? jwt - 1 : 0;
     // theta at the table's layer, for the recharge below: read before
     // the rows are written, which take theta's slots.
     const Real th_j = in_col ? theta.get(jwt) : one;
@@ -1493,12 +1678,21 @@ __global__ void __launch_bounds__(BLOCK, 1)
     const Real dz_aq = in_col ? g.dz[nl - 1] : zwtmm - g.zc[nl - 1];
 
     // The tridiagonal rows, top to bottom: the flux across the interface
-    // under layer i - 1 is qout of row i - 1 and qin of row i.
+    // under layer i - 1 is qout of row i - 1 and qin of row i.  Each
+    // layer's potential is the lagged one of the next substep: its beta
+    // term is summed here, the recharge's layer jm kept, and in the last
+    // substep it is the day's output.
+    const bool last = it == args.nisurf - 1;
+    Real beta_next = zero, smp_jm = zero;
     Node<Real> cur{zero, zero, zero, zero};
     Flux<Real> in{zero, zero, zero};
+#pragma unroll 1
     for (int i = 0; i < nl; ++i) {
       const Node<Real> nd = node(i);
-      smp.set(i, nd.smp);  // the lagged potential for the next substep
+      const Real term = beta_term(i, nd.smp);
+      beta_next = (i == 0) ? term : beta_next + term;
+      if (i == jm) smp_jm = nd.smp;
+      if (last) smp_out[i] = nd.smp;
       if (i > 0) {
         const Flux<Real> out = interface_flux(
             cur, nd.smp, nd.dsmpdw, zq.get(i - 1), zq.get(i), g.dzc[i - 1]);
@@ -1515,6 +1709,8 @@ __global__ void __launch_bounds__(BLOCK, 1)
       }
       cur = nd;
     }
+    // The bottom layer's row and the aquifer row (a_aq, b_aq, r_aq).
+    Real a_aq, b_aq, r_aq;
     {
       const int i = nl - 1;
       a.set(i - 1, -in.d1);
@@ -1532,28 +1728,33 @@ __global__ void __launch_bounds__(BLOCK, 1)
         r.set(i, in.q - out.q - qtran * rootr_i);
         b.set(i, g.dz_dt[i] - in.d2 + out.d1);
         c.set(i, out.d2);
-        r.set(nl, out.q);
-        a.set(nl - 1, -out.d1);
-        b.set(nl, dz_aq / dt - out.d2);
+        r_aq = out.q;
+        a_aq = -out.d1;
+        b_aq = dz_aq / dt - out.d2;
       } else {
         r.set(i, in.q - zero - qtran * rootr_i);
         b.set(i, g.dz_dt[i] - in.d2);
         c.set(i, zero);
-        r.set(nl, zero);
-        a.set(nl - 1, zero);
-        b.set(nl, dz_aq / dt);
+        r_aq = zero;
+        a_aq = zero;
+        b_aq = dz_aq / dt;
       }
     }
+    beta = beta_next;
 
-    // soilwater._thomas_solve_refined: solve, then one refinement step
-    // on the residual, which overwrites r; the second sweep reuses the
-    // first one's pivots bet and multipliers gam.
+    // soilwater._thomas_solve_refined on the nl soil rows and the aquifer
+    // row: solve, then one refinement step on the residual, which
+    // overwrites r; the second sweep reuses the first one's pivots bet and
+    // multipliers gam.
+    Real dw_aq;
     {
       Real betv = b.get(0);
       Real x = r.get(0) / betv;
       bet.set(0, betv);
       dw.set(0, x);
-      for (int i = 1; i < M; ++i) {
+#pragma unroll(UN)
+      for (int i = 1; i < top; ++i) {
+        if (REG && i >= nl) continue;
         const Real gi = c.get(i - 1) / betv;
         const Real ai = a.get(i - 1);
         betv = b.get(i) - ai * gi;
@@ -1562,35 +1763,65 @@ __global__ void __launch_bounds__(BLOCK, 1)
         bet.set(i, betv);
         dw.set(i, x);
       }
-      for (int i = M - 2; i >= 0; --i) {
+      Real bet_aq;
+      {
+        const Real gi = c.get(nl - 1) / betv;
+        bet_aq = b_aq - a_aq * gi;
+        x = (r_aq - a_aq * x) / bet_aq;
+        gam.set_at(nl - 1, gi);
+        dw_aq = x;
+      }
+#pragma unroll(UN)
+      for (int i = top - 1; i >= 0; --i) {
+        if (REG && i >= nl) continue;
         x = dw.get(i) - gam.get(i) * x;
         dw.set(i, x);
       }
-      for (int i = 0; i < M; ++i) {
+#pragma unroll(UN)
+      for (int i = 0; i < top; ++i) {
+        if (REG && i >= nl) continue;
         Real yi = b.get(i) * dw.get(i);
         if (i > 0) yi = yi + a.get(i - 1) * dw.get(i - 1);
-        if (i < M - 1) yi = yi + c.get(i) * dw.get(i + 1);
+        const bool bottom = i == nl - 1;
+        yi = yi + c.get(i) * (bottom ? dw_aq : dw.get(i + 1));
         r.set(i, r.get(i) - yi);
+      }
+      {
+        Real yi = b_aq * dw_aq;
+        yi = yi + a_aq * dw.get_at(nl - 1);
+        r_aq = r_aq - yi;
       }
       x = r.get(0) / bet.get(0);
       r.set(0, x);
-      for (int i = 1; i < M; ++i) {
+#pragma unroll(UN)
+      for (int i = 1; i < top; ++i) {
+        if (REG && i >= nl) continue;
         x = (r.get(i) - a.get(i - 1) * x) / bet.get(i);
         r.set(i, x);
       }
-      for (int i = M - 2; i >= 0; --i) {
+      x = (r_aq - a_aq * x) / bet_aq;
+      r_aq = x;
+#pragma unroll(UN)
+      for (int i = top - 1; i >= 0; --i) {
+        if (REG && i >= nl) continue;
         x = r.get(i) - gam.get(i) * x;
         r.set(i, x);
       }
-      for (int i = 0; i < M; ++i) dw.set(i, dw.get(i) + r.get(i));
+#pragma unroll(UN)
+      for (int i = 0; i < top; ++i) {
+        if (REG && i >= nl) continue;
+        dw.set(i, dw.get(i) + r.get(i));
+      }
+      dw_aq = dw_aq + r_aq;
     }
-    for (int i = 0; i < nl; ++i) h.set(i, h.get(i) + dw.get(i) * g.dz[i]);
+    // (Past nl, dz is 0: the update leaves h there as it is.)
+#pragma unroll(UN)
+    for (int i = 0; i < top; ++i) h.set(i, h.get(i) + dw.get(i) * g.dz[i]);
 
     // Aquifer recharge.
     Real qcharge;
     if (in_col) {
-      const int jm = jwt - 1 > 0 ? jwt - 1 : 0;
-      const Real smp_jm = smp.get(jm), zq_jm = zq.get(jm), zc_jm = g.zc[jm];
+      const Real zq_jm = zq.get(jm), zc_jm = g.zc[jm];
       const Real ts_j = p_ts.get(jwt), hk_j = p_hk.get(jwt),
                  b_j = p_bs.get(jwt);
       const Real s1q = clip(th_j / ts_j, Real(0.01), one);
@@ -1600,12 +1831,12 @@ __global__ void __launch_bounds__(BLOCK, 1)
           jwt == 0 ? zwtmm + one : (zwtmm - zc_jm) * Real(2.0);
       qcharge = clip(-ka * (zero - wh) / den_q, -qlim, qlim);
     } else {
-      qcharge = dw.get(nl) * dz_aq / dt;
+      qcharge = dw_aq * dz_aq / dt;
     }
 
     // --- drainage.drainage -----------------------------------------------
     // The walks use the stale zwtmm and jwt of the substep start.
-    const Real rous = sy.get(nl - 1);
+    const Real rous = rous_sy;
     const Real qtot = qcharge * dt;
     Real zwt1 = zwt, wa1 = wa;
     int jwt1 = jwt;
@@ -1617,9 +1848,10 @@ __global__ void __launch_bounds__(BLOCK, 1)
       Real zwt_w = zwt;
       if (rising) {
         Real rem = qtot;
+#pragma unroll 1
         for (int i = nl - 1; i >= 0; --i) {
           if (i <= jwt && rem > zero) {
-            const Real s_y = sy.get(i);
+            const Real s_y = sy(i);
             const Real ql =
                 vmax(vmin(rem, s_y * (zwtmm - g.zi[i])), zero);
             zwt_w = zwt_w - ql / s_y / Real(1000.0);
@@ -1628,9 +1860,10 @@ __global__ void __launch_bounds__(BLOCK, 1)
         }
       } else {
         Real rem_f = qtot;
+#pragma unroll 1
         for (int i = 0; i < nl; ++i) {
           if (i >= jwt && rem_f < zero) {
-            const Real s_y = sy.get(i);
+            const Real s_y = sy(i);
             const Real ql =
                 vmin(vmax(rem_f, -s_y * (g.zi[i + 1] - zwtmm)), zero);
             const Real rem_new = rem_f - ql;
@@ -1642,34 +1875,35 @@ __global__ void __launch_bounds__(BLOCK, 1)
         if (rem_f > zero) zwt_w = zwt_w - rem_f / Real(1000.0) / rous;
       }
       zwt1 = zwt_w;
-      jwt1 = water_table_index_any(zwt1, g, nl);
+      jwt1 = water_table_index_any<CAP>(zwt1, g, nl);
     }
 
     // Baseflow.  Without the cache, the yields come fresh at zwtmm1.
     const Real zwtmm1 = Real(1000.0) * zwt1;
     auto sy1 = [&](int i) -> Real {
-      return cached ? sy.get(i)
+      return cached ? sy(i)
                     : specific_yield(p_ts.get(i), p_ps.get(i),
                                      p_bs.get(i), zwtmm1);
     };
     Real rsub_top =
         Real(RSUB_TOP_MAX) * ex(Real(-FFF) * vmax(zwt1, Real(-1)));
-    const Real rous1 = sy1(nl - 1);
+    const Real rous1 = cached ? rous_sy : sy1(nl - 1);
     Real zwt2, wa2;
     if (jwt1 == nl) {
       const Real wa_tmp = wa1 - rsub_top * dt;
       zwt2 = zwt1 + (rsub_top * dt) / Real(1000.0) / rous1;
-      h.set(nl - 1, h.get(nl - 1) + vmax(zero, wa_tmp - Real(5000.0)));
+      h.add_at(nl - 1, vmax(zero, wa_tmp - Real(5000.0)));
       wa2 = vmin(wa_tmp, Real(5000.0));
     } else {
       Real rem_b = -rsub_top * dt;
       Real zwt_w1 = zwt1;
+#pragma unroll 1
       for (int i = 0; i < nl; ++i) {
         if (i >= jwt1 && rem_b < zero) {
           const Real s_y = (i == nl - 1) ? rous1 : sy1(i);
           const Real ql =
               vmin(vmax(rem_b, -(s_y * (g.zi[i + 1] - zwtmm1))), zero);
-          h.set(i, h.get(i) + ql);
+          h.add_at(i, ql);
           const Real rem_new = rem_b - ql;
           zwt_w1 = rem_new >= zero ? zwt_w1 - ql / s_y / Real(1000.0)
                                    : g.zi_m[i + 1];
@@ -1681,11 +1915,13 @@ __global__ void __launch_bounds__(BLOCK, 1)
       zwt2 = zwt_w1;
     }
     const int jwt2 =
-        (jwt1 == nl) ? jwt1 : water_table_index_any(zwt2, g, nl);
+        (jwt1 == nl) ? jwt1 : water_table_index_any<CAP>(zwt2, g, nl);
     zwt2 = clip(zwt2, zero, Real(80.0));
 
     // Saturation-excess bucket cascade, bottom-up.
-    for (int i = nl - 1; i > 0; --i) {
+#pragma unroll(UN)
+    for (int i = top - 1; i > 0; --i) {
+      if (REG && i >= nl) continue;
       const Real cap = vmax(Real(0.01), p_ts.get(i)) * g.dz[i];
       const Real hi = h.get(i);
       const Real xsi = vmax(hi - cap, zero);
@@ -1699,7 +1935,9 @@ __global__ void __launch_bounds__(BLOCK, 1)
     const Real qflx_rsub_sat = xs1 / dt;
 
     // watmin floor: borrow from the layer below.
-    for (int i = 0; i < nl - 1; ++i) {
+#pragma unroll(UN)
+    for (int i = 0; i < top - 1; ++i) {
+      if (REG && i >= nl - 1) continue;
       const Real hi = h.get(i);
       if (hi < Real(WATMIN)) {
         const Real xs = Real(WATMIN) - hi;
@@ -1710,9 +1948,11 @@ __global__ void __launch_bounds__(BLOCK, 1)
       }
     }
     // Bottom layer: search upward for water.
-    Real h_bot = h.get(nl - 1);
+    Real h_bot = h.get_at(nl - 1);
     Real xs = h_bot < Real(WATMIN) ? Real(WATMIN) - h_bot : zero;
-    for (int j = nl - 2; j >= 0; --j) {
+#pragma unroll(UN)
+    for (int j = top - 2; j >= 0; --j) {
+      if (REG && j > nl - 2) continue;
       const Real hj = h.get(j);
       const Real avail = vmax(hj - Real(WATMIN) - xs, zero);
       const Real take_j = vmin(xs, avail);
@@ -1720,12 +1960,16 @@ __global__ void __launch_bounds__(BLOCK, 1)
       h.set(j, hj - take_j);
       xs = xs - take_j;
     }
-    h.set(nl - 1, h_bot + xs);
+    h.set_at(nl - 1, h_bot + xs);
     rsub_top = rsub_top - xs / dt;
 
     // Conservation residual and the daily sums.
     Real sum_h1 = h.get(0);
-    for (int i = 1; i < nl; ++i) sum_h1 = sum_h1 + h.get(i);
+#pragma unroll(UN)
+    for (int i = 1; i < top; ++i) {
+      if (REG && i >= nl) continue;
+      sum_h1 = sum_h1 + h.get(i);
+    }
     const Real w1 =
         (qflx_surf + qevap + qtran + rsub_top + qflx_rsub_sat) * dt + wa2 +
         sum_h1;
@@ -1742,12 +1986,8 @@ __global__ void __launch_bounds__(BLOCK, 1)
     max_res = vmax(max_res, residual < zero ? -residual : residual);
   }
 
-  Real* const h_out = args.out[O_H] + static_cast<size_t>(cell) * nl;
-  Real* const smp_out = args.out[O_SMP] + static_cast<size_t>(cell) * nl;
-  for (int i = 0; i < nl; ++i) {
-    h_out[i] = h.get(i);
-    smp_out[i] = smp.get(i);
-  }
+  write_row<(REG ? CAP : 0)>(
+      args.out[O_H] + static_cast<size_t>(cell) * nl, nl, h);
   args.out[O_ZWT][cell] = zwt;
   args.out[O_WA][cell] = wa;
   args.out[O_EVAP][cell] = evap;
@@ -1756,6 +1996,100 @@ __global__ void __launch_bounds__(BLOCK, 1)
   args.out[O_RES][cell] = max_res;
 }
 
+template <typename Real, bool WITH_IMP, int CAP, bool EXACT>
+__global__ void __launch_bounds__(BLOCK, AnyBuild<Real, CAP>::min_blocks)
+    day_kernel_any(const ArgsAny<Real, CAP> args) {
+  extern __shared__ __align__(16) unsigned char h9_shared[];
+  Real* const sh = reinterpret_cast<Real*>(h9_shared);
+  if constexpr (CAP > 0) {
+    any_day<Real, WITH_IMP, CAP, EXACT>(args, args.g, args.g.dt,
+                                        args.g.qlim, sh, BLOCK);
+  } else {
+    // The block's geometry, formed in double and rounded once, before any
+    // thread of the block returns.
+    const int nl = args.nl;
+    const int T = blockDim.x;
+    Real* const zi = sh;
+    Real* const zi_m = zi + nl + 2;
+    Real* const dzi = zi_m + nl + 2;
+    Real* const dz = dzi + nl;
+    Real* const thden = dz + nl;
+    Real* const dz_dt = thden + nl;
+    Real* const zc = dz_dt + nl;
+    Real* const dzc = zc + nl;
+    {
+      const double* zid = args.geom;
+      const double* dzd = zid + nl + 2;
+      const double* zcd = dzd + nl;
+      for (int i = threadIdx.x; i < nl + 2; i += T) {
+        zi[i] = static_cast<Real>(zid[i]);
+        zi_m[i] = static_cast<Real>(zid[i] / 1000.0);
+      }
+      for (int i = threadIdx.x; i < nl; i += T) {
+        dzi[i] = static_cast<Real>(zid[i + 1] - zid[i]);
+        dz[i] = static_cast<Real>(dzd[i]);
+        thden[i] = static_cast<Real>(dzd[i] * RHOW / 1.0e3);
+        dz_dt[i] = static_cast<Real>(dzd[i] / args.dt);
+        zc[i] = static_cast<Real>(zcd[i]);
+        dzc[i] = static_cast<Real>(i + 1 < nl ? zcd[i + 1] - zcd[i] : 0.0);
+      }
+    }
+    __syncthreads();
+    const GeomAny<Real> g{zi, zi_m, dzi, dz, thden, dz_dt, zc, dzc};
+    any_day<Real, WITH_IMP, 0, false>(args, g, static_cast<Real>(args.dt),
+                                      static_cast<Real>(10.0 / args.dt),
+                                      dzc + nl, T);
+  }
+}
+
+// A register build's geometry from zi[nl + 2], dz[nl], zc[nl] (mm, in
+// double), as Instance::launch forms Geom for the fixed builds: each entry
+// rounded once; the entries past nl stay zero.
+template <typename Real, int CAP>
+void form_geometry(Geom<Real, CAP>& g, const double* geom, int nl,
+                   double dt) {
+  const double* zi = geom;
+  const double* dz = geom + nl + 2;
+  const double* zc = dz + nl;
+  g = Geom<Real, CAP>{};
+  for (int i = 0; i < nl + 2; ++i) {
+    g.zi[i] = static_cast<Real>(zi[i]);
+    g.zi_m[i] = static_cast<Real>(zi[i] / 1000.0);
+  }
+  for (int i = 0; i < nl; ++i) {
+    g.dzi[i] = static_cast<Real>(zi[i + 1] - zi[i]);
+    g.dz[i] = static_cast<Real>(dz[i]);
+    g.thden[i] = static_cast<Real>(dz[i] * RHOW / 1.0e3);
+    g.dz_dt[i] = static_cast<Real>(dz[i] / dt);
+    g.zc[i] = static_cast<Real>(zc[i]);
+    g.dzc[i] = static_cast<Real>(i + 1 < nl ? zc[i + 1] - zc[i] : 0.0);
+  }
+  g.dt = static_cast<Real>(dt);
+  g.qlim = static_cast<Real>(10.0 / dt);
+}
+
+}  // namespace
+
+// What a launch of day_kernel_any is given, handed from the C entries to
+// the unit of compilation that holds the instance.
+struct H9AnyLaunch {
+  const void* const* ins;
+  const int* strides;
+  void* const* outs;
+  int n;
+  int grid;
+  int nisurf;
+  int zd09_every;
+  double dt;
+  const double* geom;    // zi[nl + 2], dz[nl], zc[nl] in mm, on the host
+  const void* geom_dev;  // the same doubles on the device
+  int focus;
+  void* wt_trace;
+  cudaStream_t stream;
+};
+
+namespace {
+
 // What the device offers day_kernel_any, asked once per device.
 struct AnyDevice {
   bool known;
@@ -1763,27 +2097,36 @@ struct AnyDevice {
   int max_bytes;  // dynamic shared memory a block may use
 };
 
-template <typename Real, bool WITH_IMP>
+template <typename Real, bool WITH_IMP, int CAP>
 struct AnyInstance {
-  static auto kernel() { return &day_kernel_any<Real, WITH_IMP>; }
+  using L = AnyLayout<WITH_IMP, CAP>;
+  // A register build's instance for nl equal to its capacity, or the
+  // one for any count up to it.
+  static auto kernel(int nl) {
+    if constexpr (CAP > 0)
+      if (nl == CAP) return &day_kernel_any<Real, WITH_IMP, CAP, true>;
+    return &day_kernel_any<Real, WITH_IMP, CAP, false>;
+  }
 
   static long long shared_bytes(int nl, int threads) {
-    return (static_cast<long long>(any_geom_words(nl)) +
-            static_cast<long long>(threads) * any_thread_words(nl, WITH_IMP)) *
+    const long long block = CAP > 0 ? 0 : any_geom_words(nl);
+    return (block + static_cast<long long>(threads) * L::words(nl)) *
            static_cast<long long>(sizeof(Real));
   }
 
-  // Threads a block: one warp, or the most of 16, 8, ... 1 whose shared
-  // memory fits a block's; 0 if not even one thread's does.
+  // Threads a block: one warp, or (the all-shared form) the most of 16,
+  // 8, ... 1 whose shared memory fits a block's; 0 if none does or nl is
+  // past the capacity.
   static int threads(int nl, int max_bytes) {
-    for (int t = BLOCK; t >= 1; t /= 2)
+    if (CAP > 0 && nl > CAP) return 0;
+    for (int t = BLOCK; t >= (CAP > 0 ? BLOCK : 1); t /= 2)
       if (shared_bytes(nl, t) <= max_bytes) return t;
     return 0;
   }
 
-  // The device's SMs and block limit; lets the kernel use all of a
-  // block's shared memory and asks for the shared-memory carveout, the
-  // first time on each device.
+  // The device's SMs and block limit; lets the kernels use all of a
+  // block's shared memory and asks for the whole shared-memory carveout,
+  // the first time on each device.
   static int device(AnyDevice** out) {
     static AnyDevice cache[MAX_DEVICES] = {};
     int dev = 0;
@@ -1797,14 +2140,15 @@ struct AnyInstance {
       e = cudaDeviceGetAttribute(&d.max_bytes,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
       if (e != cudaSuccess) return static_cast<int>(e);
-      e = cudaFuncSetAttribute(kernel(),
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               d.max_bytes);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      e = cudaFuncSetAttribute(kernel(),
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               100);
-      if (e != cudaSuccess) return static_cast<int>(e);
+      for (int nl = CAP; nl <= CAP + 1; ++nl) {
+        e = cudaFuncSetAttribute(kernel(nl),
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 d.max_bytes);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        e = cudaFuncSetAttribute(
+            kernel(nl), cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+        if (e != cudaSuccess) return static_cast<int>(e);
+      }
       d.known = true;
     }
     *out = &d;
@@ -1822,7 +2166,7 @@ struct AnyInstance {
     const int bytes = static_cast<int>(shared_bytes(nl, t));
     int blocks = 0;
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, kernel(), t, bytes);
+        &blocks, kernel(nl), t, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (blocks < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
     out[0] = d->sms;
@@ -1832,74 +2176,125 @@ struct AnyInstance {
     return 0;
   }
 
-  static int launch(int nl, const void* const* ins, const int* strides,
-                    void* const* outs, int n, int grid, int nisurf,
-                    int zd09_every, double dt, const void* geom_dev,
-                    int focus, void* wt_trace, cudaStream_t stream) {
+  static int launch(int nl, const H9AnyLaunch& l) {
     AnyDevice* d = nullptr;
     const int rc = device(&d);
     if (rc != 0) return rc;
     const int t = threads(nl, d->max_bytes);
     if (t == 0) return static_cast<int>(cudaErrorInvalidValue);
-    if (geom_dev == nullptr || grid < (n + t - 1) / t) return -1;
-    ArgsAny<Real> args;
+    if ((CAP > 0 ? l.geom : l.geom_dev) == nullptr ||
+        l.grid < (l.n + t - 1) / t)
+      return -1;
+    ArgsAny<Real, CAP> args;
     for (int k = 0; k < N_IN; ++k) {
-      args.in[k] = static_cast<const Real*>(ins[k]);
-      args.stride[k] = strides[k];
+      args.in[k] = static_cast<const Real*>(l.ins[k]);
+      args.stride[k] = l.strides[k];
     }
-    for (int k = 0; k < N_OUT; ++k) args.out[k] = static_cast<Real*>(outs[k]);
-    args.geom = static_cast<const double*>(geom_dev);
-    args.dt = dt;
+    for (int k = 0; k < N_OUT; ++k)
+      args.out[k] = static_cast<Real*>(l.outs[k]);
+    if constexpr (CAP > 0) form_geometry(args.g, l.geom, nl, l.dt);
+    args.geom = static_cast<const double*>(l.geom_dev);
+    args.dt = l.dt;
     args.nl = nl;
-    args.n = n;
-    args.nisurf = nisurf;
-    args.zd09_every = zd09_every;
-    args.focus = focus;
-    args.wt_trace = static_cast<Real*>(wt_trace);
+    args.n = l.n;
+    args.nisurf = l.nisurf;
+    args.zd09_every = l.zd09_every;
+    args.focus = l.focus;
+    args.wt_trace = static_cast<Real*>(l.wt_trace);
     const int bytes = static_cast<int>(shared_bytes(nl, t));
-    day_kernel_any<Real, WITH_IMP><<<grid, t, bytes, stream>>>(args);
+    if constexpr (CAP > 0) {
+      if (nl == CAP) {
+        day_kernel_any<Real, WITH_IMP, CAP, true>
+            <<<l.grid, t, bytes, l.stream>>>(args);
+        return static_cast<int>(cudaGetLastError());
+      }
+    }
+    day_kernel_any<Real, WITH_IMP, CAP, false>
+        <<<l.grid, t, bytes, l.stream>>>(args);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-// Calls AnyInstance<...>::residency or ::launch for (dtype_bytes,
-// with_imp); -1 for another dtype or fewer than 3 layers.
-template <typename F>
-int with_any_instance(int dtype_bytes, int nl, int with_imp, F f) {
-  if (nl < 3) return -1;
-  if (dtype_bytes == 4)
-    return with_imp ? f(AnyInstance<float, true>())
-                    : f(AnyInstance<float, false>());
-  if (dtype_bytes == 8)
-    return with_imp ? f(AnyInstance<double, true>())
-                    : f(AnyInstance<double, false>());
-  return -1;
+// Calls f with day_kernel_any's instance for (with_imp) at capacity CAP.
+template <typename Real, int CAP, typename F>
+int with_any_instance(int with_imp, F f) {
+  return with_imp ? f(AnyInstance<Real, true, CAP>())
+                  : f(AnyInstance<Real, false, CAP>());
 }
+
+}  // namespace
+
+// A register build of day_kernel_any: its residency at nl layers (call
+// null; out as h9_day_residency's) or a launch.  Defined in the unit of
+// compilation that builds it: each unit is this source compiled with
+// H9_ANY_REAL and H9_ANY_CAP naming one entry of H9_ANY_BUILDS.
+template <typename Real, int CAP>
+int h9_any_build(int nl, int with_imp, const H9AnyLaunch* call, int* out);
+
+#ifdef H9_ANY_CAP
+
+template <typename Real, int CAP>
+int h9_any_build(int nl, int with_imp, const H9AnyLaunch* call, int* out) {
+  return with_any_instance<Real, CAP>(with_imp, [&](auto inst) {
+    return call != nullptr ? inst.launch(nl, *call) : inst.residency(nl, out);
+  });
+}
+template int h9_any_build<H9_ANY_REAL, H9_ANY_CAP>(int, int,
+                                                    const H9AnyLaunch*, int*);
+
+#else
+
+namespace {
 
 // Whether (dtype_bytes, nl) has an instance of its own.
 bool has_fixed_instance(int dtype_bytes, int nl) {
   return (dtype_bytes == 4 || dtype_bytes == 8) && (nl == 8 || nl == 20);
 }
 
+// day_kernel_any in `form` (0: the all-shared form; else the capacity of a
+// register build) for (dtype_bytes, nl, with_imp): its residency (call
+// null) or a launch; -1 where there is no such build or fewer than 3
+// layers.
+int any_form(int dtype_bytes, int form, int nl, int with_imp,
+             const H9AnyLaunch* call, int* out) {
+  if (nl < 3) return -1;
+  if (form == 0) {
+    auto run = [&](auto inst) {
+      return call != nullptr ? inst.launch(nl, *call)
+                             : inst.residency(nl, out);
+    };
+    if (dtype_bytes == 4) return with_any_instance<float, 0>(with_imp, run);
+    if (dtype_bytes == 8) return with_any_instance<double, 0>(with_imp, run);
+    return -1;
+  }
+#define H9_CALL(R, C)                                         \
+  if (dtype_bytes == static_cast<int>(sizeof(R)) && form == C) \
+    return h9_any_build<R, C>(nl, with_imp, call, out);
+  H9_ANY_BUILDS(H9_CALL)
+#undef H9_CALL
+  return -1;
+}
+
 }  // namespace
 
-// Plain C entries.  dtype_bytes is 4 (float) or 8 (double).  The instance
-// is the one built for (dtype, nl) where there is one and any_nl is 0, else
-// day_kernel_any.  Both return 0 on success, a CUDA error code, or -1 for
-// a dtype or a layer count (fewer than 3) with no instance or a grid that
-// does not cover the cells; both act on the current device.
+// Plain C entries.  dtype_bytes is 4 (float) or 8 (double).  `form` names
+// the instance: -1 the build for (dtype, nl), 0 day_kernel_any's all-shared
+// form, a capacity one of its register builds (H9_ANY_BUILDS; nl up to
+// it).  Both return 0 on success, a CUDA error code, or -1 for a form with
+// no such instance, a layer count (fewer than 3) it does not take or a
+// grid that does not cover the cells; both act on the current device.
 
 // out[4] = {SMs of the device, resident blocks of the instance an SM
 // holds, threads a block, dynamic shared bytes a block}.  Asks the device
 // once and caches.
 extern "C" int h9_day_residency(int dtype_bytes, int nl, int with_imp,
-                                int any_nl, int* out) {
-  if (!any_nl && has_fixed_instance(dtype_bytes, nl))
-    return with_instance(dtype_bytes, nl, with_imp,
-                         [&](auto inst) { return inst.residency(out); });
-  return with_any_instance(dtype_bytes, nl, with_imp, [&](auto inst) {
-    return inst.residency(nl, out);
-  });
+                                int form, int* out) {
+  if (form < 0)
+    return has_fixed_instance(dtype_bytes, nl)
+               ? with_instance(dtype_bytes, nl, with_imp,
+                               [&](auto inst) { return inst.residency(out); })
+               : -1;
+  return any_form(dtype_bytes, form, nl, with_imp, nullptr, out);
 }
 
 // ins holds N_IN device pointers in the order of the I_* slots (I_IMP is
@@ -1907,14 +2302,14 @@ extern "C" int h9_day_residency(int dtype_bytes, int nl, int with_imp,
 // the elements from one cell to the next of each input (rows of layered
 // inputs are contiguous; for a fixed instance 16-byte aligned too), outs
 // N_OUT contiguous outputs; geom holds zi[nl+2], dz[nl], zc[nl] on the host
-// for a fixed instance, geom_dev the same doubles on the device for
-// day_kernel_any.  focus is a cell in [0, n) whose zwt after each substep
-// goes to wt_trace[nisurf] on the device, or -1 (wt_trace may then be
-// null).  Launches `grid` blocks on `stream` (one warp a block for a fixed
-// instance, h9_day_residency's threads for day_kernel_any), a thread for
-// each cell.  Allocates nothing, never syncs.
+// (a fixed instance and a register build), geom_dev the same doubles on
+// the device (the all-shared form).  focus is a cell in [0, n) whose zwt
+// after each substep goes to wt_trace[nisurf] on the device, or -1
+// (wt_trace may then be null).  Launches `grid` blocks on `stream` of
+// h9_day_residency's threads, a thread for each cell.  Allocates nothing,
+// never syncs.
 extern "C" int h9_hydrology_day(int dtype_bytes, int nl, int with_imp,
-                                int any_nl, const void* const* ins,
+                                int form, const void* const* ins,
                                 const int* strides, void* const* outs, int n,
                                 int grid, int nisurf, int zd09_every,
                                 double dt, const double* geom,
@@ -1923,17 +2318,20 @@ extern "C" int h9_hydrology_day(int dtype_bytes, int nl, int with_imp,
   if (n < 1) return -1;
   if (focus < -1 || focus >= n || (focus >= 0 && wt_trace == nullptr))
     return -1;
-  if (!any_nl && has_fixed_instance(dtype_bytes, nl)) {
-    if (grid < (n + BLOCK - 1) / BLOCK) return -1;
+  if (form < 0) {
+    if (!has_fixed_instance(dtype_bytes, nl) ||
+        grid < (n + BLOCK - 1) / BLOCK)
+      return -1;
     return with_instance(dtype_bytes, nl, with_imp, [&](auto inst) {
       return inst.launch(ins, strides, outs, n, grid, nisurf, zd09_every, dt,
                          geom, focus, wt_trace,
                          static_cast<cudaStream_t>(stream));
     });
   }
-  return with_any_instance(dtype_bytes, nl, with_imp, [&](auto inst) {
-    return inst.launch(nl, ins, strides, outs, n, grid, nisurf, zd09_every,
-                       dt, geom_dev, focus, wt_trace,
-                       static_cast<cudaStream_t>(stream));
-  });
+  const H9AnyLaunch call{ins,   strides,  outs,     n,        grid,
+                         nisurf, zd09_every, dt,     geom,     geom_dev,
+                         focus, wt_trace, static_cast<cudaStream_t>(stream)};
+  return any_form(dtype_bytes, form, nl, with_imp, &call, nullptr);
 }
+
+#endif  // H9_ANY_CAP

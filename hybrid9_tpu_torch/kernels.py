@@ -3,16 +3,22 @@
 The sources in ``csrc/`` are compiled with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, at first
 use, into ``_build/`` beside this file; the library name carries a hash
-of the sources and flags, so an edited source is rebuilt and a stale
-library is never loaded.  The library is bound with ``ctypes``.  Ranks
-that start together build it once: the first takes a file lock and runs
-``nvcc``, the others wait on the lock and load its library.
+of the sources, flags and units, so an edited source is rebuilt and a
+stale library is never loaded.  A library may be built from several
+units of compilation, one source compiled with other macros (the day
+kernel: one unit for its fixed builds and C entries, one for each
+register build of ``day_kernel_any``): every unit's ``nvcc`` runs at
+once, and the objects are linked into the one library.  The library is
+bound with ``ctypes``.  Ranks that start together build it once: the
+first takes a file lock and runs ``nvcc``, the others wait on the lock
+and load its library.
 
 Nothing here runs at import: the CPU tests import every module.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import fcntl
 import hashlib
@@ -28,12 +34,28 @@ _SRC_DIR = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 DAY_KERNEL_SOURCE = _SRC_DIR / "day_kernel.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: The register builds of ``day_kernel_any``, (C type, layer capacity,
+#: the layer counts it serves): ``H9_ANY_BUILDS`` in the source lists the
+#: same builds.  A build takes any count up to its capacity but serves
+#: only those where it measured faster than the all-shared form on an H100
+#: (``scripts/day_kernel_forms.py``, PERF.md), which serves the rest.
+ANY_BUILDS = (("float", 8, range(3, 9)), ("float", 10, range(9, 11)),
+              ("float", 12, (12,)), ("float", 16, range(13, 17)),
+              ("float", 24, (20, 21, 22, 24)), ("float", 32, range(30, 33)),
+              ("double", 12, range(10, 13)))
+#: The day kernel's units of compilation, as macro definitions: the main
+#: unit (fixed builds, the all-shared form, the C entries) and one unit a
+#: register build.
+DAY_KERNEL_UNITS = ((),) + tuple(
+    (f"-DH9_ANY_REAL={real}", f"-DH9_ANY_CAP={cap}")
+    for real, cap, _ in ANY_BUILDS)
 
 _day_lib = None
 #: What the last build in this process printed and took:
-#: ``{"seconds": float, "log": str, "path": str}``; empty if the library
-#: was already on disk.
+#: ``{"seconds": float, "log": str, "path": str, "units": {unit: seconds}}``
+#: (``seconds`` from the first ``nvcc`` to the linked library); empty if
+#: the library was already on disk.
 build_info: dict = {}
 #: The same record for every library built in this process, by its path.
 build_logs: dict = {}
@@ -51,13 +73,16 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str, sources) -> Path:
-    """Compile ``sources`` with ``NVCC_FLAGS`` into ``_build/``; returns
-    the library's path and leaves the compiler's output in ``build_info``
-    and ``build_logs``.  One process at a time builds a library (a lock
-    file beside it); one that finds the library built while it waited
-    loads that."""
+def build(name: str, sources, units=((),)) -> Path:
+    """Compile each of ``sources`` once for every unit of ``units`` (a
+    tuple of macro definitions each) with ``NVCC_FLAGS``, all at once, and
+    link the objects into one library in ``_build/``; returns the
+    library's path and leaves the compiler's output in ``build_info`` and
+    ``build_logs``.  One process at a time builds a library (a lock file
+    beside it); one that finds the library built while it waited loads
+    that."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(repr(tuple(units)).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -68,26 +93,59 @@ def build(name: str, sources) -> Path:
     with open(lib.with_suffix(".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not lib.exists():
-            _compile(lib, sources)
+            _compile(lib, sources, units)
     return lib
 
 
-def _compile(lib: Path, sources) -> None:
-    """Run ``nvcc`` into a temporary file and rename it to ``lib``."""
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+def _compile(lib: Path, sources, units) -> None:
+    """Run ``nvcc`` on every (source, unit) at once into a temporary
+    directory, link the objects into a temporary library and rename it to
+    ``lib``."""
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        jobs = []
+        for i, (src, unit) in enumerate(
+                (s, u) for s in sources for u in units):
+            obj = os.path.join(tmp, f"{i}.o")
+            jobs.append((" ".join([src.name, *unit]), obj,
+                         [nvcc, *NVCC_FLAGS, *unit, "-c", "-o", obj,
+                          str(src)]))
+
+        def run(cmd):
+            started = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            return proc, time.perf_counter() - started
+
+        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+            done = list(pool.map(run, [cmd for _, _, cmd in jobs]))
+        logs = [proc.stdout + proc.stderr for proc, _ in done]
+        unit_s = {label: sec for (label, _, _), (_, sec) in zip(jobs, done)}
+        failed = [f"{label} ({proc.returncode}):\n{log}"
+                  for (label, _, _), (proc, _), log in zip(jobs, done, logs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed " + "\n".join(failed))
+        out_lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run(
+            [nvcc, NVCC_FLAGS[0], NVCC_FLAGS[1], "-shared", "-o", out_lib,
+             *[obj for _, obj, _ in jobs]],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(out_lib, lib)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    build_logs[str(lib)] = dict(seconds=seconds,
-                                log=proc.stdout + proc.stderr, path=str(lib))
+    build_logs[str(lib)] = dict(seconds=seconds, log="".join(logs),
+                                path=str(lib), units=unit_s)
     build_info.update(build_logs[str(lib)])
+
+
+def build_day_kernel(source=DAY_KERNEL_SOURCE, name: str = "h9day") -> Path:
+    """The day-kernel library from ``source`` (the package's
+    ``csrc/day_kernel.cu`` or a changed copy of it), in its
+    ``DAY_KERNEL_UNITS``."""
+    return build(name, [Path(source)], DAY_KERNEL_UNITS)
 
 
 def day_kernel_lib() -> ctypes.CDLL:
@@ -95,7 +153,7 @@ def day_kernel_lib() -> ctypes.CDLL:
     use."""
     global _day_lib
     if _day_lib is None:
-        _day_lib = bind_day_kernel(build("h9day", [DAY_KERNEL_SOURCE]))
+        _day_lib = bind_day_kernel(build_day_kernel())
     return _day_lib
 
 
@@ -104,7 +162,7 @@ def bind_day_kernel(path) -> ctypes.CDLL:
     entries."""
     lib = ctypes.CDLL(str(path))
     fn = lib.h9_hydrology_day
-    # dtype_bytes, nl, with_imp, any_nl, ins, strides, outs, n, grid,
+    # dtype_bytes, nl, with_imp, form, ins, strides, outs, n, grid,
     # nisurf, zd09_every, dt, geom, geom_dev, focus, wt_trace, stream
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -113,7 +171,7 @@ def bind_day_kernel(path) -> ctypes.CDLL:
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.h9_day_residency
-    # dtype_bytes, nl, with_imp, any_nl, out
+    # dtype_bytes, nl, with_imp, form, out
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int

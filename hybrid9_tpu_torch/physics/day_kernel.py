@@ -15,12 +15,15 @@ of 132 SMs at 96 registers a thread), the layer loops kept as loops over
 vectors in shared memory, and the state read and written ``[n, nl]`` as
 the model holds it, so that a day is one launch.  The layer counts of
 ``FIXED_NLS`` have builds of their own; every other count from ``MIN_NL``
-up runs on one more build whose layer count is a run-time argument
-(``day_kernel_any``), as the Pallas kernel takes any layer count.  What
-the wrapper decides on the host is plain Python here and tested on the
-CPU: the instance (:func:`kernel_instance`), the grid
-(:func:`launch_grid`), the tensors it accepts (:func:`cell_stride`) and
-what it refuses of an instance (:func:`instance_residency`).
+up runs on ``day_kernel_any``, whose layer count is a run-time argument,
+as the Pallas kernel takes any layer count: on the register build whose
+range holds the count (:func:`any_capacities`), where it measured faster
+than the all-shared form, else on that form.  What the wrapper decides
+on the host is plain Python here and tested on the CPU: the instance
+(:func:`kernel_instance`), the residency it predicts
+(:func:`any_residency`), the grid (:func:`launch_grid`), the tensors it
+accepts (:func:`cell_stride`) and what it refuses of an instance
+(:func:`instance_residency`).
 
 ``hydrology_day_sharded`` is the port of
 ``pallas_hydrology_day_sharded``: it cuts the cell axis into one slab
@@ -52,6 +55,13 @@ KERNEL_DTYPES = (torch.float32, torch.float64)
 #: layers' conductivity (``hydrology.substep_values``), as in the JAX
 #: package, whose day fails on fewer.
 MIN_NL = 3
+
+#: Forms of the day kernel (the C entries' ``form``): the build for the
+#: layer count, and ``day_kernel_any`` with every vector in shared memory.
+#: A positive form is the layer capacity of a register build of
+#: ``day_kernel_any`` (:func:`any_capacities`).
+FIXED = -1
+ALL_SHARED = 0
 
 #: Number of CUDA day-kernel launches in this process.
 launches = 0
@@ -164,6 +174,18 @@ def day_operations(nl: int, nisurf: int, zd09_every: int, with_imp: bool,
 
 
 SHARED_BYTES_MAX = 232_448    # dynamic shared memory one block may use
+SM_SHARED_BYTES = 233_472     # shared memory of an SM (228 KB)
+BLOCK_RESERVED_BYTES = 1_024  # what the SM reserves for each block
+MAX_BLOCKS_PER_SM = 32
+#: Registers a thread of each form of ``day_kernel_any`` at most, by dtype:
+#: the register builds' caps (``AnyBuild`` in the source asks
+#: ``__launch_bounds__`` for 17, 17, 16 and 12 resident warps at
+#: capacities 8, 10, 12 and 16, which leaves 96, 96, 128 and 168
+#: registers; 255 otherwise) and the all-shared form's registers as built
+#: (115 and 195).
+ANY_REGISTERS = {torch.float32: {8: 96, 10: 96, 12: 128, 16: 168, 24: 255,
+                                 32: 255, ALL_SHARED: 115},
+                 torch.float64: {12: 255, ALL_SHARED: 195}}
 # Raw-forcing field order of the kernel's input list.
 _FORCING_KEYS = ("tas", "rhs", "rsds", "rlds", "pr", "huss", "ps")
 
@@ -192,20 +214,37 @@ def rounds(n: int, sms: int, blocks_per_sm: int, block: int) -> int:
 
 
 def layer_cap(dtype) -> int:
-    """The most layers ``day_kernel_any`` takes in ``dtype``: one thread's
-    vectors (17 nl + 4 words with imp) and the block's geometry (8 nl + 4
-    words, csrc/day_kernel.cu) must fit the shared memory of a block,
-    ``SHARED_BYTES_MAX``.  2,324 in float32, 1,161 in float64."""
+    """The most layers ``day_kernel_any`` takes in ``dtype``: where one
+    thread's vectors in the all-shared form's first layout (17 nl + 4
+    words with imp) and the block's geometry (8 nl + 4 words) filled a
+    block's shared memory, ``SHARED_BYTES_MAX``: 2,324 in float32, 1,161
+    in float64.  The form now holds 23 nl + 3 words there
+    (:func:`any_words`) and fits the cap with room to spare; the cap is
+    kept, so the counts the port takes stay those it has run."""
     words = SHARED_BYTES_MAX // torch.empty((), dtype=dtype).element_size()
     return (words - 8) // 25
 
 
-def kernel_instance(dtype, nl: int, any_nl: bool = False) -> bool:
-    """Whether a day of ``nl`` layers in ``dtype`` runs on the build whose
-    layer count is a run-time argument (True) or on the build for ``nl``
-    (False, for ``nl`` in ``FIXED_NLS`` unless ``any_nl``).  Raises
-    ``ValueError`` on a dtype with no build and on a layer count below
-    ``MIN_NL`` or above :func:`layer_cap`."""
+def any_capacities(dtype) -> Dict[int, tuple]:
+    """``{capacity: the layer counts it serves}`` of ``day_kernel_any``'s
+    register builds in ``dtype`` (``kernels.ANY_BUILDS``)."""
+    real = {torch.float32: "float", torch.float64: "double"}.get(dtype)
+    return {cap: tuple(counts) for r, cap, counts in kernels.ANY_BUILDS
+            if r == real}
+
+
+def kernel_instance(dtype, nl: int, any_nl: bool = False,
+                    form: Optional[int] = None) -> int:
+    """The form of the day kernel that runs a day of ``nl`` layers in
+    ``dtype``: ``FIXED``, the build for ``nl`` (for ``nl`` in
+    ``FIXED_NLS`` unless ``any_nl``), else ``day_kernel_any``: the
+    register build of :func:`any_capacities` that serves ``nl``, or
+    ``ALL_SHARED``.  The choice does not depend on the impedance operand:
+    the register builds read its row from global memory.  ``form`` asks
+    for a form instead, and is checked (a register build takes every
+    count up to its capacity).  Raises ``ValueError`` on a dtype with no
+    build, on a layer count below ``MIN_NL`` or above :func:`layer_cap`,
+    and on a form that does not take ``nl``."""
     if dtype not in KERNEL_DTYPES:
         raise ValueError(f"day kernel has no instance for {dtype} (has "
                          f"{KERNEL_DTYPES})")
@@ -213,12 +252,62 @@ def kernel_instance(dtype, nl: int, any_nl: bool = False) -> bool:
         raise ValueError(f"day kernel: nl={nl}; the day takes at least "
                          f"{MIN_NL} layers (infiltration reads the top "
                          f"three)")
-    runtime = any_nl or nl not in FIXED_NLS
-    if runtime and nl > layer_cap(dtype):
+    caps = any_capacities(dtype)
+    if form is None:
+        if nl in FIXED_NLS and not any_nl:
+            return FIXED
+        form = next((cap for cap, counts in caps.items() if nl in counts),
+                    ALL_SHARED)
+    if form == FIXED:
+        if nl not in FIXED_NLS:
+            raise ValueError(f"day kernel: nl={nl} has no build of its own "
+                             f"(has {FIXED_NLS})")
+    elif form != ALL_SHARED and (form not in caps or nl > form):
+        raise ValueError(f"day kernel: no register build of capacity "
+                         f"{form} for nl={nl} in {dtype} (has "
+                         f"{sorted(caps)})")
+    if form != FIXED and nl > layer_cap(dtype):
         raise ValueError(f"day kernel: nl={nl} is above the cap of "
                          f"{layer_cap(dtype)} layers in {dtype}: one cell's "
                          f"vectors must fit a block's shared memory")
-    return runtime
+    return form
+
+
+def any_words(nl: int, form: int, with_imp: bool = True) -> int:
+    """Words of shared memory a thread of ``day_kernel_any`` holds at
+    ``nl`` layers (``AnyLayout`` in the source): 10 nl - 1 in a register
+    build (the parameter and root rows, zq and the soil rows' bands a, b,
+    c, r; the aquifer row's in registers), 14 nl - 1 in the all-shared
+    form (gam, h, bet and dw too), nl more with imp.  The all-shared
+    form's block also holds the geometry, 8 nl + 4 words."""
+    if form == ALL_SHARED:
+        return 14 * nl - 1 + (nl if with_imp else 0)
+    return 10 * nl - 1
+
+
+def any_residency(dtype, nl: int, form: int, n: int, with_imp: bool = True,
+                  sms: int = 132) -> dict:
+    """What ``day_kernel_any``'s ``form`` should hold at ``nl`` layers on
+    an H100 (``sms`` SMs of ``SM_SHARED_BYTES``): its words a thread
+    (:func:`any_words`), shared bytes a one-warp block, and the resident
+    warps an SM, the least of what shared memory allows (each block also
+    reserves ``BLOCK_RESERVED_BYTES``), what its registers allow (an SM
+    holds four files of 16,384 registers, 256 a warp at a time:
+    ``ANY_REGISTERS``) and ``MAX_BLOCKS_PER_SM``; and the :func:`rounds`
+    of one-warp blocks that ``n`` cells take."""
+    item = torch.empty((), dtype=dtype).element_size()
+    words = any_words(nl, form, with_imp)
+    block = 32
+    nbytes = words * block * item
+    if form == ALL_SHARED:
+        nbytes += (8 * nl + 4) * item
+    by_shared = SM_SHARED_BYTES // (nbytes + BLOCK_RESERVED_BYTES)
+    allocated = -(-ANY_REGISTERS[dtype][form] // 8) * 8 * block
+    by_registers = 4 * (16_384 // allocated)
+    warps = min(by_shared, by_registers, MAX_BLOCKS_PER_SM)
+    return dict(words=words, shared_bytes=nbytes, warps_by_shared=by_shared,
+                warps_by_registers=by_registers, warps=warps,
+                rounds=rounds(n, sms, warps, block))
 
 
 def cell_stride(x: torch.Tensor, name: str, n: int, nl: Optional[int],
@@ -227,8 +316,9 @@ def cell_stride(x: torch.Tensor, name: str, n: int, nl: Optional[int],
     is ``[n]`` (``nl=None``; any stride) or ``[n, nl]`` with contiguous
     rows: a contiguous tensor, or a view such as ``y[lo:hi]`` of one.  With
     ``aligned`` (a fixed build, which moves rows in 16-byte words) the rows
-    must also start on 16-byte addresses; ``day_kernel_any`` reads them an
-    element at a time.  Raises on anything else; nothing is copied."""
+    must also start on 16-byte addresses; ``day_kernel_any`` reads such a
+    row in 16-byte words and any other an element at a time.  Raises on
+    anything else; nothing is copied."""
     shape = (n,) if nl is None else (n, nl)
     if x.shape != shape or x.dtype != dtype or x.device != device:
         raise ValueError(
@@ -253,23 +343,23 @@ def cell_stride(x: torch.Tensor, name: str, n: int, nl: Optional[int],
 
 
 def instance_residency(lib, dtype, nl: int, with_imp: bool,
-                       any_nl: bool = False):
+                       any_nl: bool = False, form: Optional[int] = None):
     """``(sms, blocks_per_sm, block, shared bytes a block)`` of a kernel
-    instance on the current CUDA device (``day_kernel_any`` at ``nl``
-    where ``nl`` has no build of its own or ``any_nl``), asked of the
-    library once per device, dtype, layer count and instance.  Raises if
-    the library has no such instance, if the device refuses it, or if it
-    wants more shared memory than a block may use."""
-    key = (id(lib), torch.cuda.current_device(), dtype, nl, with_imp,
-           any_nl)
+    instance on the current CUDA device: the form :func:`kernel_instance`
+    gives for ``(dtype, nl, any_nl, form)``, asked of the library once per
+    device, dtype, layer count and instance.  Raises if the library has no
+    such instance, if the device refuses it, or if it wants more shared
+    memory than a block may use."""
+    form = kernel_instance(dtype, nl, any_nl, form)
+    key = (id(lib), torch.cuda.current_device(), dtype, nl, with_imp, form)
     if key not in _residency:
         out = (ctypes.c_int * 4)()
-        rc = lib.h9_day_residency(dtype.itemsize, nl, int(with_imp),
-                                  int(any_nl), out)
+        rc = lib.h9_day_residency(dtype.itemsize, nl, int(with_imp), form,
+                                  out)
         if rc != 0:
             raise RuntimeError(
                 f"day kernel: no residency for {dtype}, nl={nl}, "
-                f"imp={with_imp}, any_nl={any_nl} on device {key[1]}: "
+                f"imp={with_imp}, form={form} on device {key[1]}: "
                 f"error {rc}")
         sms, blocks_per_sm, block, nbytes = out
         if nbytes > SHARED_BYTES_MAX:
@@ -287,14 +377,18 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
                        zd09_every: int = 1,
                        sw_abs: Optional[torch.Tensor] = None,
                        focus_idx: Optional[int] = None,
-                       any_nl: bool = False) -> DayResult:
+                       any_nl: bool = False,
+                       form: Optional[int] = None) -> DayResult:
     """The same day as :func:`hydrology_day_plain`, as ONE launch of the
     CUDA day kernel (``csrc/day_kernel.cu``) on the current stream, and
     nothing else on the device: no transpose, no copy, no small kernel.
     ``nl`` in ``FIXED_NLS`` runs on the build for it, any other layer
     count from ``MIN_NL`` up (and every count with ``any_nl``) on
-    ``day_kernel_any``, whose geometry is a float64 tensor made once per
-    geometry and device (``layers.layer_tensor``).
+    ``day_kernel_any``: a register build, whose geometry goes in the
+    launch's parameters, or the all-shared form, whose geometry is a
+    float64 tensor made once per geometry and device
+    (``layers.layer_tensor``); ``form`` asks for one
+    (:func:`kernel_instance`).
     With ``focus_idx`` the thread of that cell also writes its water table
     after each substep into ``wt_substeps``, a runtime argument of the
     same instance: every other output is bitwise that of the day without.
@@ -315,7 +409,7 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
     dtype, device = h.dtype, h.device
     if device.type != "cuda":
         raise ValueError(f"day kernel needs CUDA tensors, got {device}")
-    runtime = kernel_instance(dtype, nl, any_nl)
+    form = kernel_instance(dtype, nl, any_nl, form)
     if n < 1 or nisurf < 1 or zd09_every < 1:
         raise ValueError(f"day kernel: n={n}, nisurf={nisurf}, "
                          f"zd09_every={zd09_every} must all be >= 1")
@@ -346,7 +440,7 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
                 f"with use_kernel=False")
     strides = [0 if x is None else
                cell_stride(x, name, n, nl if layered else None, dtype,
-                           device, aligned=not runtime)
+                           device, aligned=form == FIXED)
                for name, x, layered in ins]
     outs = [torch.empty((n, nl), dtype=dtype, device=device)
             for _ in range(2)] + \
@@ -356,7 +450,7 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
     geom_values = geom.zi + geom.dz_soil + geom.zc_soil
     geom_host = np.asarray(geom_values, dtype=np.float64)
     geom_dev = (layer_tensor(geom_values, torch.float64, device)
-                if runtime else None)
+                if form == ALL_SHARED else None)
     in_ptrs = (ctypes.c_void_p * len(ins))(
         *[None if x is None else x.data_ptr() for _, x, _ in ins])
     in_strides = (ctypes.c_int * len(ins))(*strides)
@@ -365,11 +459,11 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
     lib = kernels.day_kernel_lib()
     with torch.cuda.device(device):
         _, _, block, _ = instance_residency(lib, dtype, nl, imp is not None,
-                                            runtime)
+                                            form=form)
         grid = launch_grid(n, block)
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.h9_hydrology_day(
-            dtype.itemsize, nl, int(imp is not None), int(runtime), in_ptrs,
+            dtype.itemsize, nl, int(imp is not None), form, in_ptrs,
             in_strides, out_ptrs, n, grid, nisurf, zd09_every, float(dt),
             geom_host.ctypes.data,
             None if geom_dev is None else geom_dev.data_ptr(),

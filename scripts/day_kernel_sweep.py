@@ -7,7 +7,8 @@
 source: rolled or unrolled layer loops, what lives in shared memory, the
 resident blocks ``__launch_bounds__`` asks for).  To try another build,
 copy the source, change the copy and name it with ``--source``: this
-script compiles the package's source and every such copy at once, and for
+script compiles the package's source and every such copy at once (each in
+the package's units of compilation, ``kernels.DAY_KERNEL_UNITS``), and for
 each build prints the registers and spills of its float32 nl=8 instances
 (``nvcc -Xptxas -v``), its shared memory a block and the resident warps an
 SM (the occupancy the library reports), holds one day against the plain
@@ -166,12 +167,11 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     # Build everything at once.
-    jobs = {"package": lambda: kernels.build(
-        "h9day", [kernels.DAY_KERNEL_SOURCE])}
+    jobs = {"package": kernels.build_day_kernel}
     for item in args.source:
         label, path = item.split("=", 1)
-        jobs[label] = (lambda p=Path(path).resolve(): kernels.build(
-            "h9sweep", [p]))
+        jobs[label] = (lambda p=Path(path).resolve():
+                       kernels.build_day_kernel(p, "h9sweep"))
     with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
         futures = {k: pool.submit(f) for k, f in jobs.items()}
         paths = {}

@@ -14,8 +14,9 @@ reference case's states, on columns across regimes and on the edge
 states (knife-edge cells held to finiteness and the water balance only),
 and in float64 at 1e-9 on columns across regimes and the edge states,
 the residual included, at 8 and 20 layers (the fixed builds) and at 5,
-10 and 32 (``day_kernel_any``).  The flagship day
-(``Config()`` defaults on the 4-degree grid) runs three winter days
+10 and 32 (``day_kernel_any``), and at both ends of each register build
+of ``day_kernel_any`` (``kernels.ANY_BUILDS``) in both dtypes.  The
+flagship day (``Config()`` defaults on the 4-degree grid) runs three winter days
 through ``block_step`` with one kernel launch per day and is held against
 the plain twin; the sharded launcher is held bitwise against the
 unsharded kernel for 1 and 4 slabs of a ragged cell count.  The kernel
@@ -33,6 +34,7 @@ import pytest
 import torch
 
 import chip_smoke
+from hybrid9_tpu_torch import kernels
 from hybrid9_tpu_torch.data.synthetic import synthetic_forcing_block
 from hybrid9_tpu_torch.entry import build_flagship_case
 from hybrid9_tpu_torch.physics import day_kernel
@@ -59,6 +61,35 @@ def test_day_kernel_matches_plain_twin(dtype, regime, nl, zd09_every):
         _, res, _ = chip_smoke.check_kernel(
             f"{regime} nl={nl} imp={use_imp}", case, regime, zd09_every,
             use_imp)
+        assert day_kernel.launches == before + 1
+        assert res < 0.1
+
+
+# The fewest and the most layers each register build serves, in both
+# dtypes (the count goes to whichever form serves it in the other dtype).
+_BUILD_ENDS = sorted({nl for _, _, counts in kernels.ANY_BUILDS
+                      for nl in (min(counts), max(counts))})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,regime,nl", [
+    (d, r, nl) for nl in _BUILD_ENDS for d, r in chip_smoke.regimes_at(nl)
+    if r in ("varied", "varied_off_interfaces")
+    or (r == "reference" and nl <= chip_smoke.COARSE_NL)],
+    ids=lambda x: str(x).replace("torch.", ""))
+def test_each_register_build_at_the_ends_of_its_range(dtype, regime, nl):
+    """``day_kernel_any`` at the fewest and the most layers of each
+    register build against the twin: float64 at 1e-9, float32 within
+    F32_TOL with ``check_kernel``'s set-asides; one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the day kernel has no CPU form")
+    case = chip_smoke.check_case(1024, nl, dtype, torch.device("cuda"),
+                                 regime)
+    for use_imp in (False, True):
+        before = day_kernel.launches
+        _, res, _ = chip_smoke.check_kernel(
+            f"{regime} nl={nl} imp={use_imp}", case, regime, 8, use_imp,
+            instances=(True,))
         assert day_kernel.launches == before + 1
         assert res < 0.1
 

@@ -10,13 +10,22 @@ the 0.5-degree grid in one round; an instance that wants more shared
 memory than a block may use is refused; slab views go in without a copy
 and anything else raises.  Layer counts with a build of their own go to
 it, every other count from 3 to the cap (at least 64 in both dtypes) to
-``day_kernel_any``, whose rows may start on any element; fewer than 3
-layers and more than the cap raise before any launch.
+``day_kernel_any``, whose rows may start on any element: to the register
+build whose range holds the count, else the all-shared form, whatever the
+impedance operand; fewer than 3 layers and more than the cap raise before
+any launch.  The words a thread and the warps an SM each form should hold,
+and the rounds the grid takes, are held against hand-worked values; the
+source lists the register builds the wrapper knows, and each is a unit of
+compilation of its own.
 """
+
+import re
+import sys
 
 import pytest
 import torch
 
+from hybrid9_tpu_torch import kernels
 from hybrid9_tpu_torch.physics import day_kernel as dk
 
 CELL_COUNTS = [1, 31, 33, 69_630, 69_632, 282_624]
@@ -60,8 +69,9 @@ class _Library:
     def __init__(self, rc=0, answer=(132, 17, 32, 12_544)):
         self.rc, self.answer, self.calls = rc, answer, 0
 
-    def h9_day_residency(self, itemsize, nl, with_imp, any_nl, out):
+    def h9_day_residency(self, itemsize, nl, with_imp, form, out):
         self.calls += 1
+        self.form = form
         out[:] = self.answer
         return self.rc
 
@@ -162,24 +172,162 @@ def test_layer_counts_go_to_their_instance(dtype):
     """The fixed builds at 8 and 20 layers, ``day_kernel_any`` at every
     other count from 3 up to at least 64 and wherever it is asked for."""
     for nl in dk.FIXED_NLS:
-        assert dk.kernel_instance(dtype, nl) is False
-        assert dk.kernel_instance(dtype, nl, any_nl=True) is True
+        assert dk.kernel_instance(dtype, nl) == dk.FIXED
+        assert dk.kernel_instance(dtype, nl, any_nl=True) != dk.FIXED
     for nl in range(dk.MIN_NL, 65):
         if nl not in dk.FIXED_NLS:
-            assert dk.kernel_instance(dtype, nl) is True
+            assert dk.kernel_instance(dtype, nl) != dk.FIXED
+
+
+# The form of day_kernel_any for each layer count (any_nl at 8 and 20):
+# the register build whose range holds it, else the all-shared form.
+_ANY_FORMS = {
+    torch.float32: [(range(3, 9), 8), (range(9, 11), 10), (range(12, 13), 12),
+                    (range(13, 17), 16), ((20, 21, 22, 24), 24),
+                    (range(30, 33), 32)],
+    torch.float64: [(range(10, 13), 12)]}
+
+
+@pytest.mark.parametrize("with_imp", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_the_form_chosen_for_every_layer_count(dtype, with_imp, device_0):
+    """Every count from 3 to 64 and the cap, as the wrapper asks the
+    library for its residency: the same form with and without imp."""
+    lib = _Library()
+    for nl in list(range(dk.MIN_NL, 65)) + [dk.layer_cap(dtype)]:
+        want = next((cap for counts, cap in _ANY_FORMS[dtype]
+                     if nl in counts), dk.ALL_SHARED)
+        dk.instance_residency(lib, dtype, nl, with_imp, any_nl=True)
+        assert (nl, lib.form) == (nl, want)
+        if nl not in dk.FIXED_NLS:
+            dk.instance_residency(lib, dtype, nl, with_imp)
+            assert (nl, lib.form) == (nl, want)
+    assert sorted(dk.any_capacities(dtype)) == \
+        [cap for _, cap in _ANY_FORMS[dtype]]
+
+
+@pytest.mark.parametrize("nl,form,ok", [
+    (9, 10, True), (10, 10, True), (11, 10, False), (10, dk.ALL_SHARED, True),
+    (10, dk.FIXED, False), (8, dk.FIXED, True), (3, 32, True), (10, 7, False),
+    (2_325, dk.ALL_SHARED, False)])
+def test_a_form_asked_for_is_checked_against_the_count(nl, form, ok):
+    """A register build takes every count up to its capacity (its range
+    is only what the wrapper chooses it for); a form without a build, or
+    a count it does not take, raises."""
+    if ok:
+        assert dk.kernel_instance(torch.float32, nl, form=form) == form
+    else:
+        with pytest.raises(ValueError):
+            dk.kernel_instance(torch.float32, nl, form=form)
+
+
+# (dtype, nl, cells, form, imp) -> (words a thread, warps an SM, rounds),
+# worked by hand: a register build's 10 nl - 1 words and a one-warp block
+# of them plus the 1,024 bytes the SM reserves, against the SM's 233,472
+# bytes; its registers (96 at capacities 8 and 10, 128 at 12, 168 at 16,
+# 255 above and in float64) against 16,384 a scheduler; the all-shared
+# form's 14 nl - 1 words (nl more with imp) and 8 nl + 4 of geometry a
+# block, at 115 and 195 registers.
+_RESIDENCY = {
+    (torch.float32, 10, 68_608, 10, True): (99, 17, 1),
+    (torch.float32, 10, 68_608, 12, True): (99, 16, 2),
+    (torch.float32, 10, 68_608, 16, True): (99, 12, 2),
+    (torch.float32, 10, 68_608, 24, True): (99, 8, 3),
+    (torch.float32, 10, 68_608, 32, True): (99, 8, 3),
+    (torch.float32, 10, 68_608, dk.ALL_SHARED, True): (149, 11, 2),
+    (torch.float32, 10, 68_608, dk.ALL_SHARED, False): (139, 12, 2),
+    (torch.float32, 8, 69_632, 8, True): (79, 20, 1),
+    (torch.float32, 8, 69_632, 10, True): (79, 20, 1),
+    (torch.float32, 8, 69_632, 12, True): (79, 16, 2),
+    (torch.float32, 8, 69_632, 16, True): (79, 12, 2),
+    (torch.float32, 8, 69_632, 32, True): (79, 8, 3),
+    (torch.float32, 8, 69_632, dk.ALL_SHARED, True): (119, 14, 2),
+    (torch.float64, 10, 68_608, 12, True): (99, 8, 3),
+    (torch.float64, 10, 68_608, dk.ALL_SHARED, True): (149, 5, 4),
+}
+
+
+@pytest.mark.parametrize("key", list(_RESIDENCY),
+                         ids=lambda k: f"{str(k[0])[6:]}-nl{k[1]}-form{k[3]}"
+                                       f"-imp{int(k[4])}")
+def test_predicted_residency_of_each_form(key):
+    """At 10 layers the capacity-10 build holds 17 warps an SM, so the
+    10-layer grid's 68,608 cells run in one round (the all-shared form
+    holds 11 and takes two); at 8 layers the capacity-8 build holds the
+    0.5-degree grid's 69,632 cells in one round too."""
+    dtype, nl, n, form, imp = key
+    got = dk.any_residency(dtype, nl, form, n, with_imp=imp)
+    assert (got["words"], got["warps"], got["rounds"]) == _RESIDENCY[key]
+    assert got["warps"] == min(got["warps_by_shared"],
+                               got["warps_by_registers"])
+
+
+def test_the_sources_builds_are_the_wrappers():
+    """``H9_ANY_BUILDS`` in the source lists the register builds of
+    ``kernels.ANY_BUILDS``, and each has a unit of compilation."""
+    text = kernels.DAY_KERNEL_SOURCE.read_text()
+    listed = re.search(r"#define H9_ANY_BUILDS\(X\)(.*?)\n\n", text, re.S)
+    builds = re.findall(r"X\((\w+), (\d+)\)", listed.group(1))
+    assert [(r, int(c)) for r, c in builds] == \
+        [(r, c) for r, c, _ in kernels.ANY_BUILDS]
+    assert kernels.DAY_KERNEL_UNITS[0] == ()
+    assert [u for u in kernels.DAY_KERNEL_UNITS[1:]] == [
+        (f"-DH9_ANY_REAL={r}", f"-DH9_ANY_CAP={c}")
+        for r, c, _ in kernels.ANY_BUILDS]
+
+
+def test_the_day_kernel_builds_each_unit_and_links_them(tmp_path, monkeypatch):
+    """With a stand-in for nvcc that records its arguments: one ``-c``
+    compile a unit, with that unit's macros, and one ``-shared`` link of
+    every object into the library, whose name changes with the units."""
+    fake = tmp_path / "nvcc"
+    log = tmp_path / "calls"
+    fake.write_text(f"#!{sys.executable}\n"
+                    "import sys\n"
+                    f"open({str(log)!r}, 'a').write(' '.join(sys.argv[1:]) "
+                    "+ '\\n')\n"
+                    "out = sys.argv[sys.argv.index('-o') + 1]\n"
+                    "open(out, 'w').write('built')\n"
+                    "print('ptxas info    : Used 96 registers')\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(kernels, "_BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(kernels, "build_info", {})
+    path = kernels.build_day_kernel()
+    assert path.read_text() == "built"
+    calls = log.read_text().splitlines()
+    compiles = [c for c in calls if " -c " in c]
+    links = [c for c in calls if "-shared" in c]
+    assert len(compiles) == len(kernels.DAY_KERNEL_UNITS) and len(links) == 1
+    for unit in kernels.DAY_KERNEL_UNITS:
+        assert sum(all(f in c.split() for f in unit) and
+                   ("-DH9_ANY_CAP" in c) == bool(unit)
+                   for c in compiles) == 1
+    assert all(o in links[0] for o in
+               [c.split("-o ")[1].split()[0] for c in compiles])
+    assert len(kernels.build_info["units"]) == len(kernels.DAY_KERNEL_UNITS)
+    assert kernels.build_info["log"].count("Used 96 registers") == \
+        len(kernels.DAY_KERNEL_UNITS)
+    one = kernels.build("h9day", [kernels.DAY_KERNEL_SOURCE])
+    assert one != path
 
 
 @pytest.mark.parametrize("dtype,cap", [(torch.float32, 2_324),
                                        (torch.float64, 1_161)])
 def test_layer_cap_is_where_one_cell_fills_a_block(dtype, cap):
-    """``day_kernel_any`` keeps a cell's vectors (17 nl + 4 words with
-    imp) and the block's geometry (8 nl + 4) in shared memory: the cap is
-    the most layers whose one-thread block fits SHARED_BYTES_MAX."""
+    """The cap is where one cell's vectors filled a one-thread block of
+    the all-shared form as it was first laid out (25 words a layer and 8
+    with imp), and is kept: the form now holds 23 nl + 3 words there (its
+    bands' aquifer row, smp and sy left shared memory), so at the cap it
+    fits SHARED_BYTES_MAX with room to spare."""
     item = torch.empty((), dtype=dtype).element_size()
     assert dk.layer_cap(dtype) == cap >= 64
     assert (25 * cap + 8) * item <= dk.SHARED_BYTES_MAX \
         < (25 * (cap + 1) + 8) * item
-    dk.kernel_instance(dtype, cap)
+    words = dk.any_words(cap, dk.ALL_SHARED) + 8 * cap + 4
+    assert words == 23 * cap + 3
+    assert words * item <= dk.SHARED_BYTES_MAX
+    assert dk.kernel_instance(dtype, cap) == dk.ALL_SHARED
     with pytest.raises(ValueError, match=f"above the cap of {cap} layers"):
         dk.kernel_instance(dtype, cap + 1)
 

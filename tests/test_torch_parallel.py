@@ -386,13 +386,15 @@ def test_device_forcing_slab_is_the_global_blocks(grid_params):
 
 def test_ranks_that_start_together_build_once(monkeypatch, tmp_path):
     """Three builds of one library at once: the stand-in compiler runs
-    once, and every caller gets its library."""
+    one build's worth (a compile of the one unit, then the link, marked
+    c and l), and every caller gets its library."""
     count = tmp_path / "count"
     nvcc = tmp_path / "nvcc"
     nvcc.write_text(
         f"#!{sys.executable}\n"
         "import sys, time\n"
-        f"open({str(count)!r}, 'a').write('x')\n"
+        f"open({str(count)!r}, 'a').write("
+        "'c' if '-c' in sys.argv else 'l')\n"
         "time.sleep(0.5)\n"
         "open(sys.argv[sys.argv.index('-o') + 1], 'wb').write(b'lib')\n")
     nvcc.chmod(0o755)
@@ -402,9 +404,9 @@ def test_ranks_that_start_together_build_once(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels, "_BUILD_DIR", tmp_path / "_build")
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
         libs = list(pool.map(lambda _: kernels.build("k", [src]), range(3)))
-    assert count.read_text() == "x"
+    assert count.read_text() == "cl"
     assert len(set(libs)) == 1 and libs[0].read_bytes() == b"lib"
-    assert kernels.build("k", [src]) == libs[0] and count.read_text() == "x"
+    assert kernels.build("k", [src]) == libs[0] and count.read_text() == "cl"
 
 
 # --- the command line --------------------------------------------------------
