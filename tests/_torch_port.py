@@ -7,6 +7,7 @@ results come back to numpy for the comparison.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -174,11 +175,14 @@ def assert_tree_close(got, want, rtol, atol, what=""):
                                err_msg=what)
 
 
+@functools.lru_cache(maxsize=None)
 def day_case(nl, dtype, varied, seed=0, n=N):
     """Identical (JAX, torch) inputs of a one-day case of ``n`` cells, and
     the geometry tuples.  ``varied=False``: the state of ``initial_state``
     (built by JAX, handed over through numpy) with water tables below the
     column; ``varied=True``: the :func:`columns` states across regimes.
+    Built once per process for each set of arguments: the cases of one
+    layer count share their inputs, and no caller writes to them.
     """
     grid = grid_for(nl)
     jd = jnp.float64 if dtype == "float64" else jnp.float32
@@ -240,9 +244,10 @@ def check_plain_day_against_xla(dtype, zd09_every, imp, nl):
     want = dict(h2osoi_liq=soil.h2osoi_liq, zwt=soil.zwt, wa=soil.wa,
                 smp=soil.smp, evap_day=evap, evap_grnd_day=evap_grnd,
                 rnf_day=rnf)
-    got_soil, got_diags = hydrology_day_plain(
-        t["soil"], t["veg"], t["params"], t["forcing"], Geometry(*geom),
-        DT, NISURF, imp=t["imp"] if imp else None, zd09_every=zd09_every)
+    with torch.inference_mode():      # no autograd bookkeeping: faster
+        got_soil, got_diags = hydrology_day_plain(
+            t["soil"], t["veg"], t["params"], t["forcing"], Geometry(*geom),
+            DT, NISURF, imp=t["imp"] if imp else None, zd09_every=zd09_every)
     check_day(got_soil, got_diags, want, F64_TOL if varied else F32_TOL)
     if varied:
         np.testing.assert_allclose(tree_np(got_diags["max_abs_residual"]),
@@ -289,11 +294,12 @@ def run_both(dtype, days=5, **switch):
         j_state.Forcing(**{k: jnp.asarray(v, jd) for k, v in block.items()}),
         jsim.params, geom=jsim.geom, dt=jcfg.dt, nisurf=jcfg.nisurf,
         **jsim.step_kwargs())
-    got_state, got_acc = block_step(
-        sim.state, t_state.AnnualAccumulators.zeros(sim.n, td, "cpu",
-                                                    nsoil=nl),
-        t_state.Forcing.from_numpy(block, td, "cpu"), sim.params, sim.geom,
-        sim.cfg.dt, sim.cfg.nisurf, **sim.step_kwargs())
+    with torch.inference_mode():      # no autograd bookkeeping: faster
+        got_state, got_acc = block_step(
+            sim.state, t_state.AnnualAccumulators.zeros(sim.n, td, "cpu",
+                                                        nsoil=nl),
+            t_state.Forcing.from_numpy(block, td, "cpu"), sim.params,
+            sim.geom, sim.cfg.dt, sim.cfg.nisurf, **sim.step_kwargs())
     return (jsim, sim,
             (tree_np(want_state),
              tree_np(j_annual_means(want_acc, jcfg.nisurf))),

@@ -2,7 +2,7 @@
 against the JAX package's ``calibrate.py``.
 
 Against JAX in float64 on the same numpy inputs (N = 12 cells, 2 days,
-nisurf 4): ``apply_multipliers`` (identity bitwise), one
+nisurf 2): ``apply_multipliers`` (identity bitwise), one
 ``simulate_daily_et`` forward and ``et_loss`` with a mask at rtol 1e-9,
 the per-cell gradient of ``et_loss`` with respect to hksat, bsw and psi_s
 at rtol 1e-8 on columns that include a full aquifer, a saturated top
@@ -38,7 +38,7 @@ from _torch_port import geom_tuples, to_port, tree_np
 
 N = 12
 NDAYS = 2
-NISURF = 4
+NISURF = 2
 FIELDS = ("hksat", "bsw", "psi_s")
 LR = 0.1
 

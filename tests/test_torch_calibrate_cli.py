@@ -3,8 +3,9 @@
 ``tests/test_calibrate_cli.py`` and ``tests/test_calibrate.py`` hold the
 JAX package's, on the CPU (``--device cpu``) from a Config file the JAX
 package writes: the same output files, names and keys, and the same
-properties.  The global twin fits are shortened to 2 days (JAX: 10) and
-12 and 7 steps (JAX: 40 and 30); their recovery still holds.
+properties.  The global twin fits are shortened to 2 days (JAX: 10) of 2
+substeps (JAX: 4) and 12 and 7 steps (JAX: 40 and 30); their recovery
+still holds.
 """
 
 import json
@@ -29,7 +30,7 @@ torch.set_num_threads(1)
 def cfg_path(tmp_path_factory):
     d = tmp_path_factory.mktemp("cal")
     cfg = JConfig(resolution_deg=24.0, start_year=1901, end_year=1901,
-                  forcing_block_days=92, cell_block=16, nisurf=4,
+                  forcing_block_days=92, cell_block=16, nisurf=2,
                   use_pallas=False, output_path=str(d))
     p = d / "cfg.json"
     p.write_text(cfg.to_json())
@@ -114,7 +115,9 @@ def test_assimilate_cli_twin(cfg_path):
 
 def test_cli_calibrate_smoke(tmp_path):
     """The site ``calibrate`` command: climate and obs CSVs in, the fitted
-    multipliers' JSON out (the JAX package's keys)."""
+    multipliers' JSON out (the JAX package's keys).  At 4 substeps a day
+    (the JAX package's smoke takes 8): the command's wiring does not
+    depend on them."""
     cpath = tmp_path / "climate.csv"
     opath = tmp_path / "obs.csv"
     out = tmp_path / "fit.json"
@@ -130,7 +133,7 @@ def test_cli_calibrate_smoke(tmp_path):
             f.write(f"{d + 1},1.5\n")
     rc = main(["calibrate", "--climate", str(cpath), "--obs", str(opath),
                "--fields", "hksat,bsw", "--steps", "2", "--lr", "0.05",
-               "--nisurf", "8", "--out", str(out), *CPU])
+               "--nisurf", "4", "--out", str(out), *CPU])
     assert rc == 0
     fit = json.loads(out.read_text())
     assert set(fit) == {"multipliers", "loss_initial", "loss_final", "steps",

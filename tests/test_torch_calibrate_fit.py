@@ -2,7 +2,7 @@
 the port alone, held to the properties ``tests/test_calibrate.py`` holds
 the JAX package to: the float32 stress case whose ``beta`` near 1e-20 once
 gave Inf gradients, the Adam fit recovering a perturbation (2 days at
-nisurf 4 and 10 steps, where JAX runs 5 days at nisurf 16 and 30 steps),
+nisurf 2 and 10 steps, where JAX runs 5 days at nisurf 16 and 30 steps),
 and the mask's weight.  The comparisons with JAX are in
 tests/test_torch_calibrate.py.
 """
@@ -19,7 +19,7 @@ from hybrid9_tpu_torch.state import Forcing, SoilParams, initial_state
 
 N = 12
 NDAYS = 2
-NISURF = 4
+NISURF = 2
 FIELDS = ("hksat", "bsw", "psi_s")
 
 # Small tensors beside other test processes: one intra-op thread.

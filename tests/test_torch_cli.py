@@ -1,7 +1,8 @@
 """The port's command line against the JAX package's.
 
-``main(["run", ...])`` of both packages from one Config file written by
-the JAX package, on the CPU: two years on the 12-degree grid in float32
+``main(["run", ...])`` of both packages from Config files written by the
+JAX package, alike but for the forcing block (a year for JAX, 120 days
+for the port), on the CPU: two years on the 12-degree grid in float32
 (the default dtype) with a focus site and yearly checkpoints.  The files
 both write have the same variables, dimensions, units and fill positions
 and values within the float32 tolerance of a two-year run; ``--resume``
@@ -14,6 +15,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from hybrid9_tpu.cli import main as j_main
 from hybrid9_tpu.config import Config as JConfig
@@ -22,13 +24,14 @@ from hybrid9_tpu_torch.cli import DEBUG_SITES, main
 from _torch_port import assert_same_grid_files
 
 
-def _config_file(root, name, **kw):
+def _config_file(root, name, forcing_block_days=120):
     """A Config file written by the JAX package."""
     cfg = JConfig(resolution_deg=12.0, cell_block=32, nisurf=2,
                   routing_substeps=2, start_year=1901, end_year=1902,
-                  forcing_block_days=120, checkpoint_every_years=1,
-                  use_pallas=False, output_path=str(root / name),
-                  checkpoint_path=str(root / f"{name}_ck"), **kw)
+                  forcing_block_days=forcing_block_days,
+                  checkpoint_every_years=1, use_pallas=False,
+                  output_path=str(root / name),
+                  checkpoint_path=str(root / f"{name}_ck"))
     path = root / f"{name}.json"
     path.write_text(cfg.to_json())
     return str(path)
@@ -37,8 +40,14 @@ def _config_file(root, name, **kw):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("cli")
-    assert j_main(["run", "--config", _config_file(root, "jax"),
+    # The JAX command line reads a year in one block, which compiles its
+    # block step once; the port's reads 120-day blocks.  A day's forcing
+    # does not depend on its block.
+    assert j_main(["run", "--config",
+                   _config_file(root, "jax", forcing_block_days=366),
                    "--cache-dir", "", "--focus", "vaira"]) == 0
+    # The straight run is the command as a user gives it; the resumed one
+    # runs without autograd bookkeeping, which is faster.
     port = _config_file(root, "port")
     assert main(["run", "--config", port, "--device", "cpu",
                  "--focus", "vaira"]) == 0
@@ -48,8 +57,9 @@ def runs(tmp_path_factory):
     os.mkdir(root / "resumed_ck")
     os.rename(root / "port_ck" / "year_1901.pt",
               root / "resumed_ck" / "year_1901.pt")
-    assert main(["run", "--config", resumed, "--device", "cpu",
-                 "--resume"]) == 0
+    with torch.inference_mode():
+        assert main(["run", "--config", resumed, "--device", "cpu",
+                     "--resume"]) == 0
     return root
 
 
@@ -90,7 +100,6 @@ def test_info_names_torch_and_the_cards(capsys):
 
 
 def test_run_needs_the_card_unless_told(tmp_path):
-    import torch
     if torch.cuda.is_available():
         pytest.skip("this check is for a machine without a card")
     path = _config_file(tmp_path, "c")

@@ -77,10 +77,11 @@ def _run_both(dtype, zd09_every):
         j_state.Forcing(**{k: jnp.asarray(v, jd) for k, v in block.items()}),
         jsim.params, geom=jsim.geom, dt=jcfg.dt, nisurf=jcfg.nisurf,
         **jsim.step_kwargs())
-    got = block_step(
-        sim.state, t_state.AnnualAccumulators.zeros(sim.n, td, "cpu"),
-        t_state.Forcing.from_numpy(block, td, "cpu"), sim.params, sim.geom,
-        sim.cfg.dt, sim.cfg.nisurf, **sim.step_kwargs())
+    with torch.inference_mode():      # no autograd bookkeeping: faster
+        got = block_step(
+            sim.state, t_state.AnnualAccumulators.zeros(sim.n, td, "cpu"),
+            t_state.Forcing.from_numpy(block, td, "cpu"), sim.params,
+            sim.geom, sim.cfg.dt, sim.cfg.nisurf, **sim.step_kwargs())
     return jsim, sim, want, got
 
 

@@ -42,13 +42,14 @@ def test_plain_day_matches_golden(tag):
         rootr=d["rootr"][None], c_labile=[0.0], n_labile=[0.0],
         p_labile=[0.0]), f64, "cpu")
     geom = Geometry.from_layer_grid(g)
-    for day in range(int(d["n_days"])):
-        f = t_state.Forcing.from_numpy(
-            synthetic_forcing_day(1, day + 1, seed=int(d["seed"])), f64,
-            "cpu")
-        soil, _ = hydrology_day_plain(soil, veg, params, f, geom, 1800.0,
-                                      48)
-        veg, _, _ = grow_daily(veg, soil.smp, f.tas, geom.zi)
+    with torch.inference_mode():      # no autograd bookkeeping: faster
+        for day in range(int(d["n_days"])):
+            f = t_state.Forcing.from_numpy(
+                synthetic_forcing_day(1, day + 1, seed=int(d["seed"])), f64,
+                "cpu")
+            soil, _ = hydrology_day_plain(soil, veg, params, f, geom,
+                                          1800.0, 48)
+            veg, _, _ = grow_daily(veg, soil.smp, f.tas, geom.zi)
     np.testing.assert_allclose(soil.h2osoi_liq[0].numpy(), d["h"][-1],
                                rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(float(soil.zwt[0]), d["zwt"][-1], rtol=1e-6)

@@ -3,7 +3,8 @@ over gloo), against one process and the JAX package.
 
 The Config is ``tests/test_multiprocess.py``'s ``CFG`` with the dense
 kinematic router on (two routing substeps) and float64: the 12-degree
-grid, ``nisurf=4``.  Every child runs under ``ATEN_CPU_CAPABILITY=
+grid, at ``nisurf=2`` (that file's 4 halved: ranks and slabs do not
+depend on the substeps).  Every child runs under ``ATEN_CPU_CAPABILITY=
 default``: with AVX kernels a cell's last bit depends on its place in
 the tensor (ROADMAP §C), which would part a slab from the whole axis.
 
@@ -46,7 +47,7 @@ from _torch_port import read_nc
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dict(resolution_deg=12.0, start_year=1901, end_year=1901,
-           forcing_block_days=366, cell_block=32, nisurf=4,
+           forcing_block_days=366, cell_block=32, nisurf=2,
            frozen_soil=False, snow=False, lateral_routing=True,
            routing_substeps=2, lateral_groundwater=False,
            checkpoint_every_years=1, dtype="float64")
@@ -203,7 +204,8 @@ def test_two_ranks_write_the_one_rank_year(runs):
                   if not f.startswith("means")) == [
         "axy1901.nc", "focus_daily.csv", "focus_wt.csv",
         "init_diagnostics.nc"]
-    for name, rows in (("focus_daily.csv", 365), ("focus_wt.csv", 1460)):
+    for name, rows in (("focus_daily.csv", 365),
+                       ("focus_wt.csv", 365 * CFG["nisurf"])):
         lines = (root / "one" / name).read_text().splitlines()
         assert (root / "two" / name).read_text().splitlines() == \
             lines[:1 + rows]

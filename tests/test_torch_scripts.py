@@ -6,7 +6,7 @@ zd09 drift analysis (the JAX program and the port on one seeded npz give
 equal JSON), the Vaira record's synthesis and dry-down, the NISURF
 study's zig-zag score and the phase timers.  The physics under the
 programs is held against JAX by the year, switch, assimilation and site
-tests.  The port alone, on the CPU at 24 degrees with 2 substeps a day:
+tests.  The port alone, on the CPU at 24 degrees with 1 substep a day:
 each program's own checks hold (one year of the soak, the run and each
 router's soak; a few days of the DA soak and of the zd09 bisection).
 """
@@ -42,9 +42,11 @@ from hybrid9_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
-# A 24-degree grid (31 land cells in one block of 32) and 2 substeps a
-# day: a year of the flagship physics in some 10 s on one CPU thread.
-SMALL = dict(resolution_deg=24.0, cell_block=32, nisurf=2,
+# A 24-degree grid (31 land cells in one block of 32) and 1 substep a
+# day: a year of the flagship physics in some 5 s on one CPU thread.  The
+# programs' own checks (a clean year, a written file) do not depend on the
+# substeps.
+SMALL = dict(resolution_deg=24.0, cell_block=32, nisurf=1,
              routing_substeps=1)
 
 
@@ -107,6 +109,45 @@ def test_zd09_drift_analysis_matches_jax(tmp_path, monkeypatch):
         assert json.load(f) == want
     assert not (tmp_path / "zd09_drift.json").exists()
     assert _sha(record) == before
+
+
+def test_tier1_queue_simulates_xdist_loadfile(tmp_path, capsys):
+    """``scripts/tier1_queue.py`` on a three-file junit, by hand: the files
+    queue by test count (b: 4 tests of 1 s, the port's c: 3 of 3 s, a: 1
+    of 6 s); on two workers b and c start at once, b's worker is down to
+    2 tests at 2 s and takes a first (3 s would be c's), which starts at
+    4 s and ends at 10 s; the floor is 19 s over 2, the port's share
+    9 s over 10.  On six workers every file has a worker and c ends
+    last, at 9 s."""
+    cases = ([("tests.test_b", 1.0)] * 4 + [("tests.test_torch_c", 3.0)] * 3
+             + [("tests.test_a", 6.0)])
+    xml = tmp_path / "run.xml"
+    xml.write_text(
+        '<testsuites><testsuite name="pytest">' + "".join(
+            f'<testcase classname="{c}" name="t{i}" time="{t}" />'
+            for i, (c, t) in enumerate(cases)) + "</testsuite></testsuites>")
+    spec = importlib.util.spec_from_file_location(
+        "tier1_queue", os.path.join(ROOT, "scripts", "tier1_queue.py"))
+    queue = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(queue)
+    files = queue.read_junit([str(xml)])
+    assert queue.queue(files) == ["tests/test_b.py", "tests/test_torch_c.py",
+                                  "tests/test_a.py"]
+    assert queue.simulate(files, 2) == {
+        "tests/test_b.py": (0, 0.0, 4.0),
+        "tests/test_torch_c.py": (1, 0.0, 9.0),
+        "tests/test_a.py": (0, 4.0, 10.0)}
+    two = queue.summary(files, queue.simulate(files, 2), 2)
+    assert (two["floor_s"], two["simulated_end_s"], two["last_file"]) == (
+        9.5, 10.0, "tests/test_a.py")
+    assert (two["tests"], two["seconds"], two["port_seconds"],
+            two["port_share"]) == (8, 19.0, 9.0, 0.9)
+    assert queue.main([str(xml)]) == 0
+    six = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert six["simulated_end_s"] == 9.0 and six["last_file"] == \
+        "tests/test_torch_c.py"
+    assert six["floor_s"] == pytest.approx(19.0 / 6)
+    assert (six["workers"], six["limit_s"]) == (6, 1470.0)
 
 
 def test_vaira_chain_synthesis_matches_jax(tmp_path):
@@ -212,7 +253,8 @@ def test_programs_need_the_card_unless_asked(program, tmp_path,
 
 def test_flagship_soak_year_is_clean(capsys):
     cfg = dataclasses.replace(flagship_soak.soak_config(1), **SMALL)
-    assert flagship_soak.soak(cfg, CPU)
+    with torch.inference_mode():      # no autograd bookkeeping: faster
+        assert flagship_soak.soak(cfg, CPU)
     assert "1 flagship years" in capsys.readouterr().out
 
 
@@ -220,7 +262,8 @@ def test_flagship_run_writes_its_file(tmp_path):
     out = str(tmp_path / "flagship")
     cfg = dataclasses.replace(flagship_run.flagship_config(1, out), **SMALL,
                               checkpoint_every_years=1)
-    s = flagship_run.run_flagship(cfg, CPU)
+    with torch.inference_mode():
+        s = flagship_run.run_flagship(cfg, CPU)
     assert s["files"] == 1 and os.path.exists(os.path.join(out,
                                                            "axy1901.nc"))
     assert os.path.exists(os.path.join(out, "ckpt", "year_1901.pt"))
@@ -233,10 +276,11 @@ def test_router_compare_soak_is_clean(scheme):
     cfg = dataclasses.replace(router_compare.Config(
         start_year=1901, end_year=1901, routing_scheme=scheme,
         forcing="device-synthetic", write_annual=False), **SMALL)
-    s = router_compare.soak_scheme(cfg, CPU)
-    assert s["clean"], s
-    grid, params = load_soil(cfg, torch.float32, CPU)
-    seconds, checksum = router_compare.time_scheme(cfg, grid, params, 2)
+    with torch.inference_mode():
+        s = router_compare.soak_scheme(cfg, CPU)
+        assert s["clean"], s
+        grid, params = load_soil(cfg, torch.float32, CPU)
+        seconds, checksum = router_compare.time_scheme(cfg, grid, params, 2)
     assert seconds > 0.0 and np.isfinite(checksum)
 
 

@@ -8,19 +8,20 @@ with the plain twin:
   interpret mode over the 8-virtual-device CPU mesh as
   tests/test_pallas_day.py runs it, in float32 at that file's tolerances;
 - bitwise against the unsharded day for 1, 2, 3 and 8 slabs of a ragged
-  cell count.  The physics is cell-local, so a slab boundary must not
-  change a bit.  PyTorch's AVX kernels compute a tensor's vector body
-  with SLEEF and its last few elements with libm, which differ in the
-  last ulp, so moving a slab boundary moves that tail: the bitwise check
-  therefore runs in a child process on ATen's scalar kernels
-  (``ATEN_CPU_CAPABILITY=default``), and in this process every slab is
-  held bitwise against the twin run on that slab alone and within a few
-  ulps of the unsharded day.
+  cell count (days of 16 substeps).  The physics is cell-local, so a slab
+  boundary must not change a bit.  PyTorch's AVX kernels compute a
+  tensor's vector body with SLEEF and its last few elements with libm,
+  which differ in the last ulp, so moving a slab boundary moves that
+  tail: the bitwise check therefore runs in a child process on ATen's
+  scalar kernels (``ATEN_CPU_CAPABILITY=default``), and in this process
+  every slab is held bitwise against the twin run on that slab alone and
+  within a few ulps of the unsharded day.
 
 On the card the launcher is held bitwise against the unsharded CUDA
 kernel by chip_smoke.py and tests/test_torch_cuda.py.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -36,7 +37,7 @@ from jax.sharding import Mesh
 from hybrid9_tpu.physics.hydrology import Geometry as JGeometry
 from hybrid9_tpu.physics.pallas_day import pallas_hydrology_day_sharded
 from hybrid9_tpu_torch.entry import build_reference_case
-from hybrid9_tpu_torch.physics import day_kernel
+from hybrid9_tpu_torch.physics import constants as c, day_kernel
 from hybrid9_tpu_torch.physics.hydrology import Geometry
 from hybrid9_tpu_torch.step import day_step
 
@@ -46,6 +47,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_RAGGED = 203           # divisible by none of 2, 3, 8
 SLABS = [1, 2, 3, 8]
 SOIL_FIELDS = ("h2osoi_liq", "zwt", "wa", "smp", "h2osoi_liq_ma")
+# Substeps of the days cut into slabs, each SDAY / SUBSTEPS long: a
+# slab's cells compute what they compute alone at any count; 16 keep two
+# ZD09 refreshes at zd09_every=8.  The day against the JAX package's
+# sharded kernel keeps its 48.
+SUBSTEPS = 16
 
 
 @pytest.mark.parametrize("n,k,want", [
@@ -69,7 +75,10 @@ def test_slab_bounds_rejects_more_slabs_than_cells():
         day_kernel.slab_bounds(3, 0)
 
 
+@functools.lru_cache(maxsize=None)
 def _ragged_case(dtype):
+    """The ragged day's arguments (built once a dtype; nothing writes to
+    them)."""
     case = build_reference_case(N_RAGGED, dtype, "cpu")
     rng = np.random.RandomState(0)
     td = getattr(torch, dtype)
@@ -79,7 +88,14 @@ def _ragged_case(dtype):
               zd09_every=8)
     st = case.state
     return (st.soil, st.veg, case.params, case.forcing, case.geom,
-            case.cfg.dt, case.cfg.nisurf), kw
+            c.SDAY / SUBSTEPS, SUBSTEPS), kw
+
+
+@functools.lru_cache(maxsize=None)
+def _unsharded(dtype):
+    """The ragged day unsharded, on the twin."""
+    args, kw = _ragged_case(dtype)
+    return _flat(day_kernel.hydrology_day_plain(*args, **kw))
 
 
 @pytest.mark.parametrize("focus", [0, 100, N_RAGGED - 1])
@@ -126,7 +142,7 @@ def test_sharded_day_is_the_twin_on_each_slab(k):
     args, kw = _ragged_case("float64")
     got = _flat(day_kernel.hydrology_day_sharded(
         *args, devices=["cpu"] * k, **kw))
-    whole = _flat(day_kernel.hydrology_day_plain(*args, **kw))
+    whole = _unsharded("float64")
     for name in whole:
         assert got[name].shape == whole[name].shape
         torch.testing.assert_close(got[name], whole[name], rtol=1e-11,
@@ -174,7 +190,7 @@ for devices in (None, ["cpu", "cpu", "cpu"]):
     acc = t_state.AnnualAccumulators.zeros(sim.n, torch.float64, "cpu")
     kw = dict(case.step_kwargs, devices=devices)
     runs.append(block_step(sim.state, acc, block, sim.params, sim.geom,
-                           sim.cfg.dt, sim.cfg.nisurf, **kw))
+                           me.c.SDAY / me.SUBSTEPS, me.SUBSTEPS, **kw))
 leaves = [[], []]
 for i, (state, acc) in enumerate(runs):
     state.map(lambda x: leaves[i].append(x) or x)
@@ -210,8 +226,9 @@ def test_sharded_day_is_bitwise_the_unsharded_day(scalar_kernel_run, dtype,
 
 def test_sharded_flagship_block_is_bitwise_the_unsharded_block(
         scalar_kernel_run):
-    """Two flagship days through ``block_step(devices=[cpu] * 3)``: every
-    state field and annual sum bitwise equal to the unsharded run."""
+    """Two flagship days (16 substeps) through ``block_step(devices=[cpu]
+    * 3)``: every state field and annual sum bitwise equal to the
+    unsharded run."""
     assert scalar_kernel_run["flagship_leaves"] > 40
     assert scalar_kernel_run["flagship"] == []
 

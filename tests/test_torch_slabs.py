@@ -12,10 +12,10 @@ exchange halo rows.  On the CPU with ``devices=["cpu"] * k``:
   with a row ``dense_sharding`` on the 8-device mesh, the split exchange
   of its ``lateral_groundwater_step`` on the 2 x 4 mesh, and
   ``slab_day_step`` of its ``day_step`` under ``CellSharding.create()``;
-* ten flagship days through ``block_step`` on 3 slabs bitwise the
-  unsharded block, and a checkpoint of 3 slabs resumed on 1 and 2
-  (in a child process on ATen's scalar CPU kernels: with AVX the twin's
-  last bit depends on a cell's place in its tensor);
+* ten flagship days (16 substeps) through ``block_step`` on 3 slabs
+  bitwise the unsharded block, and a checkpoint of 3 slabs resumed on 1
+  and 2 (in a child process on ATen's scalar CPU kernels: with AVX the
+  twin's last bit depends on a cell's place in its tensor);
 * the comms census of a split day, ``Simulation.state`` round trips, and
   the errors of a device list that cannot hold the run.
 """
@@ -65,6 +65,10 @@ T64 = torch.float64
 CPU = torch.device("cpu")
 ROUTER_SLABS = (1, 2, 3, 4, 8)
 SUBSTEPS = 4
+# Hydrology substeps of the flagship days on slabs, each SDAY /
+# FLAGSHIP_NISURF long: a slab's cells compute what they compute alone at
+# any count; 16 keep two ZD09 refreshes a day.
+FLAGSHIP_NISURF = 16
 SMALL = dict(resolution_deg=12.0, cell_block=32, dtype="float64", nisurf=2,
              routing_substeps=2)
 
@@ -136,8 +140,9 @@ for devices in (None, ["cpu"] * 3):
     acc = t_state.AnnualAccumulators.zeros(sim.n, torch.float64, "cpu")
     parallel.collectives.clear()
     runs.append(leaves(*block_step(
-        sim.state, acc, block, sim.params, sim.geom, sim.cfg.dt,
-        sim.cfg.nisurf, **dict(case.step_kwargs, devices=devices))))
+        sim.state, acc, block, sim.params, sim.geom,
+        86400.0 / me.FLAGSHIP_NISURF, me.FLAGSHIP_NISURF,
+        **dict(case.step_kwargs, devices=devices))))
 out["flagship_census"] = dict(parallel.collectives)
 out["flagship_leaves"] = len(runs[0])
 out["flagship"] = [i for i, (a, b) in enumerate(zip(*runs))
@@ -220,10 +225,10 @@ def test_pole_rows_carry_land_and_water():
 def test_resident_flagship_block_is_bitwise_the_unsharded_block(
         scalar_kernel_run):
     """Ten flagship days (snow, soil ice, carbon, dense kinematic
-    routing) at 4 degrees through ``block_step(devices=[cpu] * 3)``: every
-    state field and annual sum bitwise; a router census of two reshards
-    and ``2 (k - 1)`` halo rows a substep a day, and two state exchanges
-    (the gathers at the block's end)."""
+    routing; 16 substeps) at 4 degrees through ``block_step(devices=[cpu]
+    * 3)``: every state field and annual sum bitwise; a router census of
+    two reshards and ``2 (k - 1)`` halo rows a substep a day, and two
+    state exchanges (the gathers at the block's end)."""
     run = scalar_kernel_run
     assert run["flagship_leaves"] > 40
     assert run["flagship"] == []

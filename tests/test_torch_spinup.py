@@ -1,11 +1,12 @@
 """The port's carbon spin-up against the JAX package's.
 
 Mirrors tests/test_spinup.py: ``run --spinup-carbon 2`` through both
-command lines from one Config file (24-degree grid, ``nisurf=4``,
-float64), with the report of the two rehearsal years and the pools they
-leave held at rtol 1e-9; the turnover sums of a forcing block, the ratio
-jump and its fixed points against the JAX package's; and the refusal
-without carbon.
+command lines from Config files alike but for the forcing block
+(24-degree grid, ``nisurf=2``, float64; the port reads 92-day blocks, the
+JAX package a year in one, which compiles its block once), with the
+report of the two rehearsal years and the pools they leave held at rtol
+1e-9; the turnover sums of a forcing block, the ratio jump and its fixed
+points against the JAX package's; and the refusal without carbon.
 """
 
 import functools
@@ -34,7 +35,7 @@ from hybrid9_tpu_torch.state import Forcing
 from _torch_port import SWITCH_GRID, assert_tree_close, to_port, tree_np
 
 SPIN_KW = dict(resolution_deg=24.0, start_year=1901, end_year=1901,
-               forcing_block_days=92, cell_block=16, nisurf=4, carbon=True,
+               forcing_block_days=92, cell_block=16, nisurf=2, carbon=True,
                dtype="float64", write_annual=False, checkpoint_every_years=0)
 
 
@@ -79,9 +80,12 @@ def test_spinup_command_line_matches_jax(tmp_path, monkeypatch):
     parameters and synthetic forcing in float32 whatever the run's dtype;
     here it makes them in float64, as the port's does, so that both
     integrate the same inputs."""
-    cfg = tmp_path / "spin.json"
+    cfg, j_cfg = tmp_path / "spin.json", tmp_path / "jax_spin.json"
     cfg.write_text(JConfig(use_pallas=False, output_path=str(tmp_path),
                            **SPIN_KW).to_json())
+    j_cfg.write_text(JConfig(use_pallas=False, output_path=str(tmp_path),
+                             **dict(SPIN_KW,
+                                    forcing_block_days=366)).to_json())
     got, want = {}, {}
     _captured(monkeypatch, spinup, t_run.Simulation, got)
     _captured(monkeypatch, j_spinup, j_run.Simulation, want)
@@ -91,11 +95,12 @@ def test_spinup_command_line_matches_jax(tmp_path, monkeypatch):
     monkeypatch.setattr(j_soil, "load_soil",
                         functools.partial(j_soil.load_soil,
                                           dtype=jnp.float64))
-    argv = ["run", "--config", str(cfg), "--spinup-carbon", "2",
-            "--spinup-tol", "0.5"]
+    argv = ["--spinup-carbon", "2", "--spinup-tol", "0.5"]
     with torch.inference_mode():      # no autograd bookkeeping: faster
-        assert main(argv + ["--device", "cpu"]) == 0
-    assert j_main(argv + ["--cache-dir", ""]) == 0
+        assert main(["run", "--config", str(cfg), *argv, "--device",
+                     "cpu"]) == 0
+    assert j_main(["run", "--config", str(j_cfg), *argv, "--cache-dir",
+                   ""]) == 0
     assert got["kw"] == want["kw"] == dict(max_loops=2, tol_slow=0.5)
     rep, j_rep = got["report"], want["report"]
     assert set(rep) == set(j_rep) and rep["loops"] == j_rep["loops"] == 2
