@@ -43,6 +43,7 @@ from .physics.hydrology import Geometry
 from .physics.layers import layer_tensor
 from .state import Forcing, ModelState, SoilParams
 from .step import day_step
+from .utils import profiling
 
 
 class EnKFConfig(NamedTuple):
@@ -58,6 +59,8 @@ def _moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return mean, x - mean
 
 
+@profiling.spanned("assimilate.analysis",
+                   device=lambda aug, y_pred, *a, **k: y_pred)
 def enkf_update_scalar_obs(aug: Dict[str, torch.Tensor],
                            y_pred: torch.Tensor,
                            obs: torch.Tensor,
@@ -71,7 +74,8 @@ def enkf_update_scalar_obs(aug: Dict[str, torch.Tensor],
     per member (daily ET); ``obs``: ``[n]`` observed values; ``obs_mask``:
     ``[n]`` validity.  Returns the analysis ensemble (same structure).
     Cells where ``obs_mask`` is false are returned bit for bit: no mean
-    shift, no anomaly scaling.
+    shift, no anomaly scaling.  The step is the span
+    ``assimilate.analysis``, timed on the device too.
     """
     m = y_pred.shape[0]
     y_mean, dy = _moments(y_pred)
@@ -112,6 +116,7 @@ def enkf_update_scalar_obs(aug: Dict[str, torch.Tensor],
     return {k: update(v) for k, v in aug.items()}
 
 
+@profiling.spanned("assimilate.cycle")
 def _enkf_cycle(state_m: ModelState, theta_m: torch.Tensor,
                 params_tiled: SoilParams, f_day: Forcing,
                 obs: torch.Tensor, obs_mask: torch.Tensor,
@@ -128,7 +133,7 @@ def _enkf_cycle(state_m: ModelState, theta_m: torch.Tensor,
     analysed theta takes effect on the next forecast); ``f_day``: ``[n]``
     forcing shared by the members.  Returns ``(state_m', theta_m',
     y_pred)``.  The member views are reshapes and transposes of the folded
-    axis.
+    axis.  The cycle is the span ``assimilate.cycle``.
     """
     n = obs.shape[0]
     p = apply_multipliers(params_tiled,
@@ -180,6 +185,7 @@ def first_draw(generator: torch.Generator, m: int, n: int,
 
 
 @torch.no_grad()
+@profiling.spanned("assimilate.window")
 def assimilate(params: SoilParams, state0: ModelState,
                forcing_days: Forcing, obs_et: torch.Tensor,
                geom: Geometry, n_members: int = 16,
@@ -217,7 +223,8 @@ def assimilate(params: SoilParams, state0: ModelState,
 
     Returns the posterior ``theta_mean``/``theta_std`` ``[n]``, the final
     folded ensemble state and the ``[days, n]`` ensemble-mean predicted ET
-    (for innovation diagnostics).
+    (for innovation diagnostics).  The call is the root span
+    ``assimilate.window``.
     """
     if sharding is not None:
         params, state0 = sharding.put(params), sharding.put(state0)

@@ -7,6 +7,7 @@ EXECUTE/slurm_submit):
     python -m hybrid9_tpu_torch run --config run.json [--years 1901 1910]
     python -m hybrid9_tpu_torch run --config run.json --spinup-carbon 8
     python -m hybrid9_tpu_torch run --config run.json --device cpu
+    python -m hybrid9_tpu_torch run --config run.json --spans spans.json
     python -m hybrid9_tpu_torch site --csv-out site.csv [--spinup 10]
     python -m hybrid9_tpu_torch site --engine kernel [--device cpu]
     python -m hybrid9_tpu_torch calibrate --climate c.csv --obs obs.csv
@@ -33,6 +34,12 @@ each card keeps from day to day (``parallel.sharding.DeviceSlabs``).
 and runs ``--spinup-carbon`` on the slabs too; ``ensemble``,
 ``assimilate`` and ``calibrate --config`` fold and fit each slab on its
 card and join the outputs once, at the end.
+
+``--spans PATH`` (``run``, ``ensemble``, ``assimilate``) records the
+program's spans (``utils.profiling``: each day and its modules, the
+closed loops' days, windows and analyses, the garbage collector's
+collections) and writes them at exit as a Chrome trace to ``PATH``; each
+rank of a multi-process run writes ``PATH.<rank>``.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch
 from . import calendar
 from .parallel.launch import initialize_distributed, process_index
 from .site import DEBUG_SITES
+from .utils import profiling
 from .utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -712,6 +720,7 @@ def main(argv=None) -> int:
     pr.add_argument("--spinup-tol", type=float, default=1.0,
                     help="spin-up convergence: max |d slow pool| per "
                          "rehearsal year, g C/m^2/yr")
+    _spans_flag(pr)
     pr.set_defaults(fn=cmd_run)
 
     ps = sub.add_parser("site", help="single-column site simulation")
@@ -833,6 +842,7 @@ def main(argv=None) -> int:
                          "ensemble.nc)")
     pe.add_argument("--device", default=None,
                     help="torch device of the run (default: the card)")
+    _spans_flag(pe)
     pe.set_defaults(fn=cmd_ensemble)
 
     pa = sub.add_parser("assimilate",
@@ -869,10 +879,29 @@ def main(argv=None) -> int:
                          "hksat_multiplier per land cell)")
     pa.add_argument("--device", default=None,
                     help="torch device of the run (default: the card)")
+    _spans_flag(pa)
     pa.set_defaults(fn=cmd_assimilate)
 
     args = p.parse_args(argv)
-    return args.fn(args)
+    if getattr(args, "spans", None) is None:
+        return args.fn(args)
+    profiling.record(True)
+    try:
+        return args.fn(args)
+    finally:
+        from .parallel.launch import process_count
+        profiling.record(False)
+        path = args.spans
+        if process_count() > 1:
+            path = f"{path}.{process_index()}"
+        log.info("%d spans written to %s", profiling.write_trace(path), path)
+
+
+def _spans_flag(parser) -> None:
+    parser.add_argument("--spans", default=None, metavar="PATH",
+                        help="record the program's spans and write them at "
+                             "exit as a Chrome trace (PATH.<rank> on each "
+                             "rank of a multi-process run)")
 
 
 if __name__ == "__main__":

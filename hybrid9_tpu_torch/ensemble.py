@@ -27,6 +27,7 @@ from .physics import constants as c
 from .physics.hydrology import Geometry
 from .state import Forcing, ModelState, SoilParams
 from .step import day_step
+from .utils import profiling
 
 
 def perturbed_multipliers(generator: torch.Generator,
@@ -136,6 +137,7 @@ def ensemble_spread(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.mean(x, dim=0), torch.std(x, dim=0, correction=0)
 
 
+@profiling.spanned("ensemble.run")
 def run_ensemble_annual(theta: Dict[str, torch.Tensor],
                         params: SoilParams,
                         state0: ModelState,
@@ -170,7 +172,7 @@ def run_ensemble_annual(theta: Dict[str, torch.Tensor],
     first device once, at the end.
 
     Returns ``{"evap", "runoff", "npp"}`` as ``[members, n]`` totals
-    (mm and g DM).
+    (mm and g DM).  The call is the root span ``ensemble.run``.
     """
     if sharding is not None:
         params, state0 = sharding.put(params), sharding.put(state0)
@@ -203,16 +205,19 @@ def _run_annual_folded(states, forcings, params, geom, dt, m, nisurf,
     """The folded day loop of :func:`run_ensemble_annual` over slabs
     (a list each; the whole problem is one slab): each day, each slab's
     ``[n_slab]`` forcing folded to ``[n_slab*m]``, one day step, the
-    slab's sums.  Returns each slab's ``{"evap", "runoff", "npp"}`` sums
-    over the folded axis, on its device."""
+    slab's sums, one span ``ensemble.day``.  Returns each slab's
+    ``{"evap", "runoff", "npp"}`` sums over the folded axis, on its
+    device."""
     sums = [dict.fromkeys(_ANNUAL, torch.zeros_like(s.veg.lai))
             for s in states]
     for d in range(forcings[0].tas.shape[0]):
         for i, (f, p) in enumerate(zip(forcings, params)):
-            f_m = f.map(lambda x: fold(x[d], m))
-            states[i], diags = day_step(states[i], f_m, p, geom, dt, nisurf,
-                                        use_kernel=use_kernel,
-                                        zd09_every=zd09_every,
-                                        vegetation=vegetation)
-            sums[i] = {k: v + diags[_ANNUAL[k]] for k, v in sums[i].items()}
+            with profiling.span("ensemble.day"):
+                f_m = f.map(lambda x: fold(x[d], m))
+                states[i], diags = day_step(states[i], f_m, p, geom, dt,
+                                            nisurf, use_kernel=use_kernel,
+                                            zd09_every=zd09_every,
+                                            vegetation=vegetation)
+                sums[i] = {k: v + diags[_ANNUAL[k]]
+                           for k, v in sums[i].items()}
     return sums

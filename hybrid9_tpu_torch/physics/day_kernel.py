@@ -42,6 +42,7 @@ import torch
 
 from .. import kernels
 from ..state import Forcing, SoilParams, SoilState, VegState
+from ..utils import profiling
 from .drainage import compute_specific_yields
 from .et import daily_et_context
 from .hydrology import Geometry, derive_forcing, substep_values
@@ -62,6 +63,10 @@ MIN_NL = 3
 #: ``day_kernel_any`` (:func:`any_capacities`).
 FIXED = -1
 ALL_SHARED = 0
+#: The ``instance`` a launch gives the open span; a register build is
+#: ``day_kernel_any capacity <nl>``.
+_INSTANCE_NAMES = {FIXED: "day_kernel",
+                   ALL_SHARED: "day_kernel_any all-shared"}
 
 #: Number of CUDA day-kernel launches in this process.
 launches = 0
@@ -401,7 +406,9 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
     :func:`cell_stride`; anything else raises), and the raw forcing, from
     which it forms ``derive_forcing``'s fields itself, bitwise.  The grid
     is :func:`launch_grid`'s, for the block of the instance
-    (:func:`instance_residency`).
+    (:func:`instance_residency`).  While spans are recorded the launch
+    annotates the open span (``profiling.annotate``: its instance, grid,
+    resident blocks an SM and rounds).
     """
     global launches
     h = soil.h2osoi_liq
@@ -458,10 +465,17 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
 
     lib = kernels.day_kernel_lib()
     with torch.cuda.device(device):
-        _, _, block, _ = instance_residency(lib, dtype, nl, imp is not None,
-                                            form=form)
+        sms, per_sm, block, _ = instance_residency(lib, dtype, nl,
+                                                   imp is not None, form=form)
         grid = launch_grid(n, block)
         stream = torch.cuda.current_stream(device).cuda_stream
+        if profiling.recording():
+            profiling.annotate(
+                instance=_INSTANCE_NAMES.get(
+                    form, f"day_kernel_any capacity {form}"), nl=nl,
+                dtype=str(dtype).removeprefix("torch."),
+                imp=imp is not None, block=block, grid=grid,
+                blocks_per_sm=per_sm, rounds=rounds(n, sms, per_sm, block))
         rc = lib.h9_hydrology_day(
             dtype.itemsize, nl, int(imp is not None), form, in_ptrs,
             in_strides, out_ptrs, n, grid, nisurf, zd09_every, float(dt),

@@ -52,6 +52,7 @@ from .physics.snow import (SnowParams, TwoLayerSnowParams, snow_step,
 from .physics.soiltemp import (freeze_impedance, freeze_impedance_from_ice,
                                phase_change, soil_temperature_step)
 from .state import AnnualAccumulators, Forcing, ModelState, SoilParams
+from .utils import profiling
 
 #: The port of the JAX package's ``step._xla_day_substeps``: the plain
 #: substep loop lives beside the CUDA kernel it twins.
@@ -68,6 +69,7 @@ def snow_absorptivity(swe: torch.Tensor, alpha_snow: float = 0.70,
     return 0.92 * (1.0 - fsno) + (1.0 - alpha_snow) * fsno
 
 
+@profiling.spanned("day")
 def day_step(state: ModelState, forcing: Forcing, params: SoilParams,
              geom: Geometry, dt: float, nisurf: int,
              use_kernel=None, routing=None, lateral=None, snow=None,
@@ -134,43 +136,49 @@ def _before_routing(state, forcing, params, geom, dt, nisurf,
                     focus_idx=None) -> _Midday:
     """The cell-local part of a day before routing: the snowpack, the
     frozen-soil impedance, the hydrology day and growth (``day_step``'s
-    keywords and defaults)."""
+    keywords and defaults).  Each part that runs is a span:
+    ``day.snow``, ``day.impedance``, ``day.hydrology`` (which the day
+    kernel's launch annotates: ``profiling.annotate``) and
+    ``day.grow``."""
     swe = state.swe
     snowpack = state.snowpack
     snow_capped = None
-    # Snow-albedo feedback: absorptivity from the day-start pack.
     sw_abs = None
-    if snow is not None and snow_albedo is not None:
-        sw_abs = snow_absorptivity(state.swe, *snow_albedo)
-    if isinstance(snow, TwoLayerSnowParams):
-        snowpack, pr_eff, snow_capped = _two_layer_snow(swe, snowpack,
-                                                        forcing, snow)
-        swe = snowpack.swe_surf + snowpack.swe_base + snowpack.w_liq
-        forcing = forcing.replace(pr=pr_eff)
-    elif isinstance(snow, SnowParams):
-        swe, pr_eff, _melt, snow_capped = snow_step(swe, forcing.tas,
-                                                    forcing.pr, snow)
-        forcing = forcing.replace(pr=pr_eff)
-    elif snow is not None:
-        raise TypeError(f"no snow scheme for {type(snow).__name__}")
+    if snow is not None:
+        with profiling.span("day.snow", device=swe):
+            # Snow-albedo feedback: absorptivity from the day-start pack.
+            if snow_albedo is not None:
+                sw_abs = snow_absorptivity(state.swe, *snow_albedo)
+            if isinstance(snow, TwoLayerSnowParams):
+                snowpack, pr_eff, snow_capped = _two_layer_snow(
+                    swe, snowpack, forcing, snow)
+                swe = snowpack.swe_surf + snowpack.swe_base + snowpack.w_liq
+            elif isinstance(snow, SnowParams):
+                swe, pr_eff, _melt, snow_capped = snow_step(
+                    swe, forcing.tas, forcing.pr, snow)
+            else:
+                raise TypeError(f"no snow scheme for {type(snow).__name__}")
+            forcing = forcing.replace(pr=pr_eff)
     # Frozen-soil impedance, lagged like smp and constant across the
     # day's substeps.
     imp = None
     if freeze:
-        if soil_ice:
-            imp = freeze_impedance_from_ice(state.soil.h2osoi_liq,
-                                            state.h2osoi_ice)
-        else:
-            imp = freeze_impedance(state.t_soil)
+        with profiling.span("day.impedance", device=state.t_soil):
+            if soil_ice:
+                imp = freeze_impedance_from_ice(state.soil.h2osoi_liq,
+                                                state.h2osoi_ice)
+            else:
+                imp = freeze_impedance(state.t_soil)
 
     day_args = (state.soil, state.veg, params, forcing, geom, dt, nisurf)
     day_kw = dict(imp=imp, zd09_every=zd09_every, sw_abs=sw_abs,
                   use_kernel=use_kernel, focus_idx=focus_idx)
-    if devices is not None:
-        soil, diags = hydrology_day_sharded(*day_args, devices=devices,
-                                            **day_kw)
-    else:
-        soil, diags = hydrology_day(*day_args, **day_kw)
+    with profiling.span("day.hydrology", device=state.soil.h2osoi_liq):
+        if devices is not None:
+            soil, diags = hydrology_day_sharded(*day_args, devices=devices,
+                                                **day_kw)
+        else:
+            soil, diags = hydrology_day(*day_args, **day_kw)
     veg, npp, litterfall, vflux = _grow(state.veg, soil, forcing, geom,
                                         vegetation)
     diags = dict(diags, npp=npp, **vflux)
@@ -183,10 +191,11 @@ def _before_routing(state, forcing, params, geom, dt, nisurf,
 def _after_routing(state, mid: _Midday, river, soil, diags, params, geom,
                    soil_ice: bool, carbon: bool):
     """The cell-local part of a day after routing and the lateral
-    exchange: soil heat and ice, and the carbon cascade.  Returns the
-    day's ``(state, diags)``."""
-    t_soil, soil, ice = _soil_thermal(state, soil, params, mid.forcing, geom,
-                                      soil_ice, mid.sw_abs)
+    exchange: soil heat and ice (span ``day.soil_heat``), and the carbon
+    cascade (``day.carbon``).  Returns the day's ``(state, diags)``."""
+    with profiling.span("day.soil_heat", device=state.t_soil):
+        t_soil, soil, ice = _soil_thermal(state, soil, params, mid.forcing,
+                                          geom, soil_ice, mid.sw_abs)
     cstate, rh, nee, cflux = _carbon(state.carbon, mid.vflux,
                                      mid.litterfall, t_soil, soil, params,
                                      geom, carbon)
@@ -224,8 +233,9 @@ def _grow(veg, soil, forcing, geom, vegetation: bool):
     litterfall are 0 and the flux dict is empty.  Returns ``(veg, npp,
     litterfall, fluxes)``."""
     if vegetation:
-        return grow_daily(veg, soil.smp, forcing.tas, geom.zi,
-                          return_fluxes=True)
+        with profiling.span("day.grow", device=veg.lai):
+            return grow_daily(veg, soil.smp, forcing.tas, geom.zi,
+                              return_fluxes=True)
     z = torch.zeros_like(veg.lai)
     return veg, z, z, {}
 
@@ -245,11 +255,12 @@ def _carbon(carbon_state, vflux, litterfall, t_soil, soil, params, geom,
     if not enabled:
         z = torch.zeros_like(litterfall)
         return carbon_state, z, z, {}
-    production = (vflux["v_production"] if vflux
-                  else torch.zeros_like(litterfall))
-    return carbon_daily(carbon_state, production, litterfall, t_soil,
-                        _theta(soil.h2osoi_liq, geom.dz_soil),
-                        params.theta_s, return_fluxes=True)
+    with profiling.span("day.carbon", device=litterfall):
+        production = (vflux["v_production"] if vflux
+                      else torch.zeros_like(litterfall))
+        return carbon_daily(carbon_state, production, litterfall, t_soil,
+                            _theta(soil.h2osoi_liq, geom.dz_soil),
+                            params.theta_s, return_fluxes=True)
 
 
 #: The router of each routing params type (physics/routing.py).
@@ -262,8 +273,13 @@ def _route(river_store, diags, routing):
     type; without ``routing`` the store is unchanged and discharge is 0.
     On one rank's slab (``routing`` a ``Gathered``) the runoff and the
     store are gathered from every rank, routed over the whole network and
-    cut back to the slab."""
-    store, discharge = _routed(river_store, diags["rnf_day"], routing)
+    cut back to the slab.  A span ``day.route`` where a router runs."""
+    if routing is None:
+        store, discharge = _routed(river_store, diags["rnf_day"], routing)
+    else:
+        with profiling.span("day.route", device=river_store):
+            store, discharge = _routed(river_store, diags["rnf_day"],
+                                       routing)
     return store, dict(diags, discharge=discharge)
 
 
@@ -288,10 +304,12 @@ def _routed(store, rnf, routing):
 def _lateral(soil, lateral):
     """Daily groundwater exchange between cells (physics/lateral.py),
     applied to the aquifer store; on one rank's slab (a ``Gathered``)
-    over the gathered ``wa`` and ``zwt`` of every rank."""
+    over the gathered ``wa`` and ``zwt`` of every rank.  A span
+    ``day.lateral`` where the exchange runs."""
     if lateral is None:
         return soil
-    return soil.replace(wa=_exchanged(soil.wa, soil.zwt, lateral))
+    with profiling.span("day.lateral", device=soil.wa):
+        return soil.replace(wa=_exchanged(soil.wa, soil.zwt, lateral))
 
 
 def _exchanged(wa, zwt, lateral):
@@ -321,38 +339,43 @@ def _route_slabs(slabs: DeviceSlabs, stores, rnfs, routing):
     (``route_grid_day_split``); a packed router, or a rank's
     ``Gathered``, gathers its operands onto the first device once a day
     (one "gather"), runs the global function and cuts the result back.
-    One slab runs the global function itself."""
+    One slab runs the global function itself.  A span ``day.route``
+    (device events on the first slab's device) where a router runs."""
     routing = _in_one_process(routing)
     if routing is None:
         return stores, [torch.zeros_like(s) for s in stores]
-    if slabs.k == 1:
-        new, discharge = _routed(stores[0], rnfs[0], routing)
-        return [new], [discharge]
-    if isinstance(routing, GridRouting):
-        return route_grid_day_split(stores, rnfs, routing.split(slabs))
-    whole = slabs.gather([dict(store=s, rnf=r) for s, r in
-                          zip(stores, rnfs)], "gather")
-    new, discharge = _routed(whole["store"], whole["rnf"], routing)
-    return slabs.put(new), slabs.put(discharge)
+    with profiling.span("day.route", device=stores[0]):
+        if slabs.k == 1:
+            new, discharge = _routed(stores[0], rnfs[0], routing)
+            return [new], [discharge]
+        if isinstance(routing, GridRouting):
+            return route_grid_day_split(stores, rnfs, routing.split(slabs))
+        whole = slabs.gather([dict(store=s, rnf=r) for s, r in
+                              zip(stores, rnfs)], "gather")
+        new, discharge = _routed(whole["store"], whole["rnf"], routing)
+        return slabs.put(new), slabs.put(discharge)
 
 
 def _lateral_slabs(slabs: DeviceSlabs, soils, lateral):
     """:func:`_lateral` on device slabs: lateral groundwater split into
     row bands (``lateral_groundwater_step_split``), or for a rank's
-    ``Gathered`` over the operands gathered onto the first device."""
+    ``Gathered`` over the operands gathered onto the first device.  A
+    span ``day.lateral`` (device events on the first slab's device) where
+    the exchange runs."""
     lateral = _in_one_process(lateral)
     if lateral is None:
         return soils
     if slabs.k == 1:
         return [_lateral(soils[0], lateral)]
-    if isinstance(lateral, LateralParams):
-        wa, _ = lateral_groundwater_step_split(
-            [s.wa for s in soils], [s.zwt for s in soils],
-            lateral.split(slabs))
-    else:
-        whole = slabs.gather([dict(wa=s.wa, zwt=s.zwt) for s in soils],
-                             "gather")
-        wa = slabs.put(_exchanged(whole["wa"], whole["zwt"], lateral))
+    with profiling.span("day.lateral", device=soils[0].wa):
+        if isinstance(lateral, LateralParams):
+            wa, _ = lateral_groundwater_step_split(
+                [s.wa for s in soils], [s.zwt for s in soils],
+                lateral.split(slabs))
+        else:
+            whole = slabs.gather([dict(wa=s.wa, zwt=s.zwt) for s in soils],
+                                 "gather")
+            wa = slabs.put(_exchanged(whole["wa"], whole["zwt"], lateral))
     return [s.replace(wa=w) for s, w in zip(soils, wa)]
 
 
@@ -498,6 +521,7 @@ def _stack_rows(rows):
     return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
 
+@profiling.spanned("day")
 def slab_day_step(slabs: DeviceSlabs, states: list, forcings: list,
                   params: list, geom: Geometry, dt: float, nisurf: int,
                   routing=None, lateral=None, soil_ice: bool = False,
@@ -513,7 +537,8 @@ def slab_day_step(slabs: DeviceSlabs, states: list, forcings: list,
     ``_lateral_slabs``).  ``focus_idx`` (of the slabs' cells) goes, at its
     local index, to the slab that holds it.  ``cell`` are ``day_step``'s
     other keywords (``devices`` is ignored: the slabs are the devices).
-    Returns the slabs' ``(states, diags)`` lists."""
+    Returns the slabs' ``(states, diags)`` lists.  The day is one span
+    ``day``, each slab's parts spans of their own."""
     cell.pop("devices", None)
     mids = [_before_routing(st, f, p, geom, dt, nisurf, devices=None,
                             soil_ice=soil_ice,

@@ -27,7 +27,9 @@ aligned, and two launches on the same inputs agree bitwise.  With a
 focus cell the kernel writes that cell's water table after each substep
 (held against the twin's trace) and changes no other output.  A source
 that does not build and a launch the C entry refuses raise; two years of
-the hot climate run finite and conserving on the kernel.
+the hot climate run finite and conserving on the kernel.  A day's
+``day.hydrology`` span holds its launch on the profiler's clock, and the
+closed loops make no host sync.
 """
 
 import pytest
@@ -482,3 +484,108 @@ def test_hot_climate_on_the_kernel():
         pytest.skip("needs a CUDA device: the day kernel has no CPU form")
     out = chip_smoke.hot_climate(torch.device("cuda", 0))
     assert out["launches"] == chip_smoke.HOT_DAYS == 730
+
+
+def _closed_loop_case(n, days):
+    """Synthetic float32 columns on the canonical grid, their initial
+    state and ``days`` days of forcing, on the card."""
+    from hybrid9_tpu_torch.config import LayerGrid
+    from hybrid9_tpu_torch.data.synthetic import synthetic_soil_params
+    from hybrid9_tpu_torch.physics.hydrology import Geometry
+    from hybrid9_tpu_torch.state import SoilParams, initial_state
+    dev = torch.device("cuda", 0)
+    grid = LayerGrid.from_interfaces()
+    params = SoilParams.from_numpy(synthetic_soil_params(n, seed=7),
+                                   torch.float32, dev)
+    state = initial_state(params, grid.dz, grid.zi, torch.float32, dev)
+    block = Forcing.from_numpy(synthetic_forcing_block(days, n, seed=7,
+                                                       start_doy=150),
+                               torch.float32, dev)
+    return params, state, block, Geometry.from_layer_grid(grid)
+
+
+def _ns(event, what):
+    """A profiler event's ``start`` or ``duration`` in nanoseconds."""
+    got = getattr(event, what + "_ns", None)
+    return int(got()) if got else int(getattr(event, what + "_us")() * 1000)
+
+
+@pytest.mark.cuda
+def test_hydrology_span_holds_its_launch():
+    """The ``day.hydrology`` span of a day on the card contains the start
+    of its kernel's ``cudaLaunchKernel`` in a CUDA-only profiler session
+    (the span and the profiler share the epoch clock), its event pair
+    holds at least the kernel's device time, and it carries the launch's
+    instance, grid and rounds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the day kernel has no CPU form")
+    from hybrid9_tpu_torch.step import day_step
+    from hybrid9_tpu_torch.utils import profiling
+    params, state, block, geom = _closed_loop_case(4096, 1)
+    day = block.map(lambda x: x[0])
+    day_step(state, day, params, geom, 1800.0, 48, zd09_every=8)
+    torch.cuda.synchronize()
+    profiling.record(True)
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            day_step(state, day, params, geom, 1800.0, 48, zd09_every=8)
+            torch.cuda.synchronize()
+    finally:
+        profiling.record(False)
+    span, = [s for s in profiling.spans() if s.name == "day.hydrology"]
+    events = list(prof.profiler.kineto_results.events())
+    kernel, = [e for e in events if "CUDA" in str(e.device_type())
+               and "day_kernel" in e.name()]
+    launch, = [e for e in events if "CUDA" not in str(e.device_type())
+               and e.correlation_id() == kernel.correlation_id()]
+    assert span.start_ns <= _ns(launch, "start") <= span.end_ns
+    assert profiling.device_ms(span) >= _ns(kernel, "duration") / 1e6
+    block_threads = span.attrs["block"]
+    assert span.attrs["instance"] == "day_kernel"
+    assert (span.attrs["nl"], span.attrs["dtype"]) == (8, "float32")
+    assert span.attrs["imp"] is False
+    assert span.attrs["grid"] == day_kernel.launch_grid(4096, block_threads)
+    assert span.attrs["rounds"] == 1 and span.attrs["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("record", [False, True])
+def test_closed_loops_make_no_host_sync(record):
+    """A folded ensemble day and a 2-day assimilation window at 1,024
+    cells run under ``torch.cuda.set_sync_debug_mode("error")`` up to the
+    copy of their outputs to the host: the day path waits on the device
+    nowhere, with the span recorder off or on.  One call of each first
+    makes what a process makes once (the kernel's build, its residency,
+    the layer constants)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the day kernel has no CPU form")
+    from hybrid9_tpu_torch.assimilate import assimilate
+    from hybrid9_tpu_torch.ensemble import (perturbed_multipliers,
+                                            run_ensemble_annual)
+    from hybrid9_tpu_torch.utils import profiling
+    params, state, block, geom = _closed_loop_case(1024, 2)
+    dev = state.soil.zwt.device
+    theta = perturbed_multipliers(torch.Generator(device=dev).manual_seed(1),
+                                  4, sigma=0.3)
+    obs = torch.full((2, 1024), 1.5, device=dev)
+
+    def loops():
+        ens = run_ensemble_annual(theta, params, state,
+                                  block.map(lambda x: x[:1]), geom,
+                                  nisurf=48, zd09_every=8)
+        da = assimilate(params, state, block, obs, geom, n_members=4,
+                        nisurf=48, zd09_every=8, seed=3)
+        return ens, da
+
+    loops()
+    torch.cuda.synchronize()
+    profiling.record(record)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ens, da = loops()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        profiling.record(False)
+    assert bool(torch.isfinite(ens["evap"]).all())
+    assert bool(torch.isfinite(da["theta_mean"]).all())

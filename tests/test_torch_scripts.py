@@ -4,7 +4,7 @@
 Against the JAX package where a program has arithmetic of its own: the
 zd09 drift analysis (the JAX program and the port on one seeded npz give
 equal JSON), the Vaira record's synthesis and dry-down, the NISURF
-study's zig-zag score and the phase timers.  The physics under the
+study's zig-zag score and ``device_sync``.  The physics under the
 programs is held against JAX by the year, switch, assimilation and site
 tests.  The port alone, on the CPU at 24 degrees with 1 substep a day:
 each program's own checks hold (one year of the soak, the run and each
@@ -18,7 +18,6 @@ import json
 import os
 import subprocess
 import sys
-import time
 
 import numpy as np
 import pytest
@@ -207,24 +206,11 @@ def test_nisurf_longest_alternation_matches_jax():
     assert max(max(row) for row in got) > 10     # the zig-zag is seen
 
 
-def test_profiling_matches_jax(monkeypatch):
-    """``PhaseTimers.report()`` is the JAX package's text for the same
-    durations, and ``device_sync`` its float on the same array."""
+def test_profiling_matches_jax():
+    """``device_sync`` is the JAX package's float on the same array."""
     from hybrid9_tpu.utils import profiling as j_profiling
     import jax.numpy as jnp
 
-    reports = []
-    for module in (j_profiling, profiling):
-        clock = iter([0.0, 1.25, 2.0, 7.5, 8.0, 8.125, 9.0, 9.0625])
-        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-        timers = module.PhaseTimers()
-        for name in ("forcing", "day loop", "forcing", "output"):
-            with timers.phase(name):
-                pass
-        monkeypatch.undo()
-        reports.append(timers.report())
-    assert reports[0] == reports[1]
-    assert reports[1].splitlines()[0].startswith("day loop")
     # Quarter-integer values: both sums are exact in any order.
     x = np.random.RandomState(4).randint(-4000, 4000, (64, 8)) / 4.0
     y = np.ones(3)
