@@ -195,7 +195,17 @@ non-zero:
    turns, and the two ratios to the fixed build; each register build
    against the all-shared form at the ends of its range (``build_times``);
    the bound at 10 layers, and 5 days of ``block_step(devices=[cuda:0] *
-   3)`` bitwise the unsharded block.
+   3)`` bitwise the unsharded block;
+20. the soil-heat kernel against its plain twin on the same tensors
+   (``soil_heat_path``): every build at 3, 8, 10, 20, 32 and 40 layers,
+   winter and varied states, with and without the ice store and
+   ``sw_abs``, float64 within 1e-10 and float32 with no layer flipped
+   across the freezing band and within 1e-3 K; then at the main path's
+   widths (69,632 cells at 8 and 10 layers with the ice store, the
+   folded 557,056 at 8 and 10 and 1,114,112 at 8 without), each timed
+   with its twin by CUDA events beside its byte bound.  Every path above
+   that runs ``day_step``, ``block_step`` or slabs on the card launches
+   the soil-heat kernel as often as the day kernel (``read_launches``).
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -239,7 +249,7 @@ from hybrid9_tpu_torch.ensemble import fold
 from hybrid9_tpu_torch.io.netcdf import read_grid_file
 from hybrid9_tpu_torch.io.writer import ANNUAL_UNITS
 from hybrid9_tpu_torch.physics import constants as c
-from hybrid9_tpu_torch.physics import day_kernel
+from hybrid9_tpu_torch.physics import day_kernel, soil_heat
 from hybrid9_tpu_torch.physics.hydrology import Geometry
 from hybrid9_tpu_torch.physics.lateral import lateral_groundwater_step
 from hybrid9_tpu_torch.physics.soiltemp import freeze_impedance_from_ice
@@ -546,6 +556,206 @@ def edge_columns(nl, grid):
             np.full((n, nl), 1.0 / nl))
 
 
+#: A float32 layer that moves by more than this (K) against the twin took
+#: the other side of the freezing band's crossing test (one ulp decides
+#: it, and some 0.5 K follows); rounding alone moves a layer by 1e-4 K.
+SOIL_HEAT_FLIP_K = 1.0e-2
+
+
+def soil_heat_case(n: int, nl: int, dtype, device, regime: str = "varied",
+                   seed: int = 0) -> dict:
+    """Inputs of a soil-heat day at ``n`` cells and ``nl`` layers on the
+    canonical 8-layer grid or the exponential grid of ``nl`` layers: the
+    keyword arguments of ``physics.soil_heat.soil_heat`` but ``soil_ice``,
+    ``latent_ramp`` and ``use_kernel``.  ``"winter"``: soil and air within
+    a few kelvin of freezing; ``"varied"``: 262-305 K soil under 250-315 K
+    air.  Water fills 5-95 % of the pores, the ice store up to half the
+    liquid; ``sw_abs`` in 0.3-0.92."""
+    if regime not in ("winter", "varied"):
+        raise ValueError(f"unknown regime {regime!r}")
+    zi = CANONICAL_ZI_MM if nl == 8 else exponential_interfaces(nl)
+    geom = Geometry.from_layer_grid(LayerGrid.from_interfaces(zi))
+    rng = np.random.RandomState(seed)
+    dz = np.asarray(geom.dz_soil)
+    theta_s = rng.uniform(0.35, 0.55, (n, nl))
+    liq = rng.uniform(0.05, 0.95, (n, nl)) * theta_s * dz
+    ice = rng.uniform(0.0, 0.5, (n, nl)) * liq
+    if regime == "winter":
+        t_soil = c.TF + rng.uniform(-6.0, 4.0, (n, nl))
+        tas = c.TF + rng.uniform(-20.0, 5.0, n)
+    else:
+        t_soil = rng.uniform(262.0, 305.0, (n, nl))
+        tas = rng.uniform(250.0, 315.0, n)
+    forcing = Forcing.from_numpy(
+        dict(tas=tas, rsds=rng.uniform(0.0, 350.0, n),
+             rlds=rng.uniform(150.0, 420.0, n),
+             ps=rng.uniform(7.0e4, 1.04e5, n), huss=np.full(n, 5.0e-3),
+             pr=np.zeros(n), rhs=np.full(n, 60.0)), dtype, device)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    return dict(t_soil=t(t_soil), liq=t(liq), ice=t(ice),
+                theta_s=t(theta_s), lai=t(rng.uniform(0.0, 7.0, n)),
+                forcing=forcing, geom=geom, dt=c.SDAY,
+                sw_abs=t(rng.uniform(0.3, 0.92, n)))
+
+
+def soil_heat_run(fn, inputs: dict, soil_ice: bool,
+                  with_sw_abs: bool = True):
+    """``fn`` (``soil_heat_cuda`` or ``soil_heat_plain``) on ``inputs``:
+    the ice store and the band as the day step runs them."""
+    kw = dict(inputs, soil_ice=soil_ice,
+              latent_ramp=0.0 if soil_ice else 2.0)
+    if not with_sw_abs:
+        kw["sw_abs"] = None
+    return fn(**kw)
+
+
+def compare_soil_heat(got, want) -> dict:
+    """Kernel outputs ``got`` against the twin's ``want`` (``(t_soil,
+    liq, ice)``): the share of cells bitwise equal in every output, the
+    widest gap of each output over the twin's largest magnitude of it,
+    and for the temperature the layers that moved by more than
+    ``SOIL_HEAT_FLIP_K`` and the widest gap (K) in the columns that hold
+    none of them (a flipped layer moves its neighbours by a few mK)."""
+    same = torch.ones(got[0].shape[0], dtype=torch.bool,
+                      device=got[0].device)
+    rel = []
+    for g, w in zip(got, want):
+        same &= (g == w).all(dim=1)
+        scale = float(w.abs().max())
+        rel.append(float((g - w).abs().max()) / scale if scale else 0.0)
+    gap = (got[0] - want[0]).abs()
+    flipped = gap > SOIL_HEAT_FLIP_K
+    clean = ~flipped.any(dim=1)
+    return dict(bitwise_cells=float(same.double().mean()), rel_gap=rel,
+                flipped_layers=int(flipped.sum()),
+                layers=int(gap.numel()),
+                t_gap_outside_flips=float(gap[clean].max()))
+
+
+#: Phase 20's limits of the soil-heat kernel against its twin: float64
+#: within SOIL_HEAT_F64_REL of each output's largest magnitude; float32
+#: with no layer flipped, every temperature within SOIL_HEAT_F32_K and
+#: the water and ice within SOIL_HEAT_F32_REL of their largest magnitude.
+SOIL_HEAT_F64_REL = 1.0e-10
+SOIL_HEAT_F32_K = 1.0e-3
+SOIL_HEAT_F32_REL = 1.0e-5
+#: Layer counts of the accuracy sweep: the register build of capacity 8
+#: at both ends, capacity 16 at 10 layers, capacity 32 at 20 and at its
+#: top, and the run-time form above it; at SOIL_HEAT_CHECK_CELLS cells.
+SOIL_HEAT_NLS = (3, 8, 10, 20, 32, 40)
+SOIL_HEAT_CHECK_CELLS = 65_536
+SOIL_HEAT_REPS = 50
+SOIL_HEAT_PLAIN_REPS = 2
+
+
+def soil_heat_within(label, out, dtype):
+    """Raise unless :func:`compare_soil_heat`'s ``out`` is within phase
+    20's limits in ``dtype``."""
+    if dtype == torch.float64:
+        ok = max(out["rel_gap"]) <= SOIL_HEAT_F64_REL
+    else:
+        ok = (out["flipped_layers"] == 0
+              and out["t_gap_outside_flips"] <= SOIL_HEAT_F32_K
+              and max(out["rel_gap"][1:]) <= SOIL_HEAT_F32_REL)
+    if not ok:
+        raise RuntimeError(f"soil-heat kernel vs twin, {label}: {out}")
+
+
+def soil_heat_widths():
+    """The main path's soil-heat launches: (label, cells, layers, ice
+    store, ``sw_abs`` tensor).  The flagship's day and the 10-layer
+    year's run the ice store under snow's absorptivity; the benchmark's
+    folded ensembles and assimilation the freezing band without them."""
+    return (("flagship", N_FLAGSHIP, 8, True, True),
+            ("10-layer year", N_FLAGSHIP, LAYER_YEAR_NL, True, True),
+            ("ensemble nl=8", ENSEMBLE_MEMBERS * N_FLAGSHIP, 8, False,
+             False),
+            ("ensemble nl=10", ENSEMBLE_MEMBERS * N_FLAGSHIP, 10, False,
+             False),
+            ("assimilation nl=8", DA_MEMBERS * N_FLAGSHIP, 8, False, False))
+
+
+def soil_heat_path(dev, smi):
+    """Phase 20: the soil-heat kernel (``soil_heat.soil_heat_cuda``)
+    against its plain twin (``soil_heat_plain``) on the same CUDA tensors.
+    First every build, at SOIL_HEAT_NLS layers on SOIL_HEAT_CHECK_CELLS
+    cells of the winter and the varied state, with and without the ice
+    store and ``sw_abs``, in both dtypes; then at the main path's widths
+    (:func:`soil_heat_widths`, float32, the winter state), where each
+    launch is also timed with the twin by CUDA events behind a sleeping
+    kernel (``_time_cuda(..., queued=True)``), beside the least time its
+    bytes allow (``soil_heat.cell_bytes`` over PEAK_BYTES_PER_S).  Every
+    comparison within phase 20's limits (:func:`soil_heat_within`), one
+    launch a kernel call and none a twin call.  Returns the summary."""
+    sweep = dict(cases=0, bitwise_cases=0, max_rel_f64=0.0,
+                 max_t_gap_f32=0.0, flipped_layers=0)
+    for dtype in (torch.float64, torch.float32):
+        for nl in SOIL_HEAT_NLS:
+            for regime in ("winter", "varied"):
+                inputs = soil_heat_case(SOIL_HEAT_CHECK_CELLS, nl, dtype,
+                                        dev, regime, seed=nl)
+                for soil_ice in (False, True):
+                    for sw in (True, False):
+                        label = (f"{str(dtype)[6:]} nl={nl} {regime} "
+                                 f"soil_ice={soil_ice} sw_abs={sw}")
+                        before = soil_heat.launches
+                        got = soil_heat_run(soil_heat.soil_heat_cuda, inputs,
+                                            soil_ice, sw)
+                        want = soil_heat_run(soil_heat.soil_heat_plain,
+                                             inputs, soil_ice, sw)
+                        if soil_heat.launches != before + 1:
+                            raise RuntimeError(
+                                f"soil-heat kernel vs twin, {label}: "
+                                f"{soil_heat.launches - before} launches")
+                        out = compare_soil_heat(got, want)
+                        soil_heat_within(label, out, dtype)
+                        sweep["cases"] += 1
+                        sweep["bitwise_cases"] += out["bitwise_cells"] == 1.0
+                        sweep["flipped_layers"] += out["flipped_layers"]
+                        key = ("max_rel_f64" if dtype == torch.float64
+                               else "max_t_gap_f32")
+                        sweep[key] = max(sweep[key], max(out["rel_gap"])
+                                         if dtype == torch.float64 else
+                                         out["t_gap_outside_flips"])
+    print(f"soil-heat kernel vs twin, every build ({SOIL_HEAT_NLS} layers, "
+          f"{SOIL_HEAT_CHECK_CELLS} cells): " + json.dumps(sweep))
+    widths = {}
+    for label, n, nl, soil_ice, sw in soil_heat_widths():
+        inputs = soil_heat_case(n, nl, torch.float32, dev, "winter", seed=n)
+        out = compare_soil_heat(
+            soil_heat_run(soil_heat.soil_heat_cuda, inputs, soil_ice, sw),
+            soil_heat_run(soil_heat.soil_heat_plain, inputs, soil_ice, sw))
+        soil_heat_within(label, out, torch.float32)
+        ms, wall_ms = _time_cuda(lambda: soil_heat_run(
+            soil_heat.soil_heat_cuda, inputs, soil_ice, sw)[0],
+            SOIL_HEAT_REPS, queued=True)
+        plain_ms, plain_wall_ms = _time_cuda(lambda: soil_heat_run(
+            soil_heat.soil_heat_plain, inputs, soil_ice, sw)[0],
+            SOIL_HEAT_PLAIN_REPS, queued=True)
+        nbytes = n * soil_heat.cell_bytes(nl, 4, soil_ice, sw)
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        widths[label] = dict(
+            cells=n, nl=nl, soil_ice=soil_ice, sw_abs=sw,
+            build=soil_heat.instance_name(
+                soil_heat.capacity(torch.float32, nl)),
+            bitwise_cells=out["bitwise_cells"],
+            max_abs_err_k=out["t_gap_outside_flips"],
+            flipped_layers=out["flipped_layers"], ms=ms, wall_ms=wall_ms,
+            plain_ms=plain_ms, plain_wall_ms=plain_wall_ms, bytes=nbytes,
+            bound_ms=bound_ms, bandwidth_share=bound_ms / ms)
+        print(f"soil-heat kernel, {label} ({n} cells, nl={nl}, f32, "
+              f"soil_ice={soil_ice}, sw_abs={sw}): bitwise share "
+              f"{out['bitwise_cells']}, max|kernel-twin| "
+              f"{out['t_gap_outside_flips']:.3e} K; {ms * 1e3:.1f} us by "
+              f"events ({wall_ms:.3f} ms issued), twin {plain_ms:.3f} ms "
+              f"({plain_wall_ms:.3f} ms issued), bound {bound_ms * 1e3:.1f} "
+              f"us ({bound_ms / ms:.0%} of it) ({smi})")
+    return dict(sweep=sweep, widths=widths)
+
+
 def check_case(n, nl, dtype, device, regime, seed=0):
     """Inputs of a kernel-vs-twin case on the canonical 8-layer grid or
     the exponential one of ``nl`` layers, with a random frozen-soil
@@ -694,22 +904,39 @@ def _ptxas_summary(log: str) -> list:
     return out
 
 
-def _time_cuda(fn, reps):
+#: Clock cycles a second of ``torch.cuda._sleep``'s spin at the H100's
+#: highest clock, so a sleep of this many cycles a second lasts at least
+#: that long.
+SLEEP_CYCLES_PER_S = 2.0e9
+
+
+def _time_cuda(fn, reps, queued=False):
     """Mean ms per call of ``fn`` (which returns a tensor) by CUDA events
     and by the host clock; the timed window closes with a device-to-host
-    checksum and a synchronize."""
+    checksum and a synchronize.  With ``queued`` the timed calls wait on
+    the card behind a sleeping kernel that outlasts their issue, so the
+    events time the device's work alone, not the host's pace; the host's
+    ms are then those of the same calls issued without it."""
     fn()
     torch.cuda.synchronize()
+    if queued:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        issue = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
+    if queued:
+        torch.cuda._sleep(int(2 * issue * SLEEP_CYCLES_PER_S) + 10_000_000)
     start.record()
     for _ in range(reps):
         out = fn()
     stop.record()
     checksum = float(out.sum())
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = issue if queued else time.perf_counter() - t0
     if not np.isfinite(checksum):
         raise RuntimeError("non-finite checksum in a timed run")
     return start.elapsed_time(stop) / reps, wall * 1e3 / reps
@@ -758,6 +985,32 @@ def _state_leaves(state):
     leaves = []
     state.map(lambda x: leaves.append(x) or x)
     return leaves
+
+
+#: The soil-heat kernel's launches on each path that :func:`read_launches`
+#: read, by the path's label (the ``kernels`` line reports them).
+HEAT_LAUNCHES = {}
+
+
+def zero_launches():
+    """Set the day kernel's and the soil-heat kernel's launch counts to 0
+    before a path runs."""
+    day_kernel.launches = 0
+    soil_heat.launches = 0
+
+
+def read_launches(label):
+    """The day kernel's launches since :func:`zero_launches`, once the
+    soil-heat kernel is found to have launched as often: each model day
+    that ``day_step``, ``block_step`` or a slab path runs on the card
+    launches each once (once a slab), and a day on the twin neither.
+    Keeps the soil-heat count in HEAT_LAUNCHES under ``label``."""
+    launches = day_kernel.launches
+    HEAT_LAUNCHES[label] = soil_heat.launches
+    if soil_heat.launches != launches:
+        raise RuntimeError(f"{label}: {soil_heat.launches} soil-heat kernel "
+                           f"launches beside {launches} of the day kernel")
+    return launches
 
 
 def check_block(label, state, means, days, launches):
@@ -911,11 +1164,11 @@ def run_years(tmp, name, log, argv=(), **cfg_kw):
     with open(path, "w") as f:
         f.write(cfg.to_json())
     first = len(log.years)
-    day_kernel.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     rc = cli.main(["run", "--config", path, *argv])
     wall = time.perf_counter() - t0
-    launches = day_kernel.launches
+    launches = read_launches(f"year path {name}")
     if rc != 0:
         raise RuntimeError(f"year path {name}: exit code {rc}")
     years = log.years[first:]
@@ -1163,13 +1416,13 @@ def switch_paths(flag, fblock, f31, smi, **cfg_kw):
         run = dict(params=sim.params, geom=sim.geom, dt=sim.cfg.dt,
                    nisurf=sim.cfg.nisurf)
         acc0 = AnnualAccumulators.zeros(n, torch.float32, dev)
-        day_kernel.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         state, acc = block_step(sim.state, acc0, fblock, **run, **kw)
         means = annual_means(acc, sim.cfg.nisurf)
         torch.cuda.synchronize()
         block_s = time.perf_counter() - t0
-        launches = day_kernel.launches
+        launches = read_launches(f"switch {name}")
         summary = check_block(f"switch {name}", state, means, FLAGSHIP_DAYS,
                               launches)
         day = day_step(state, f31, sim.params, sim.geom, sim.cfg.dt,
@@ -1469,12 +1722,12 @@ def closed_loop_path(tmp, dev, smi, argv=(), **cfg_kw):
         # --- ensemble, the full default year ----------------------------
         ens_path = os.path.join(tmp, "ensemble.nc")
         fields = ("hksat", "bsw", "psi_s")
-        day_kernel.launches = 0
+        zero_launches()
         with KernelWidths() as w:
             wall = _run_cli(["ensemble", "--config", path, "--members",
                              str(ENSEMBLE_MEMBERS), "--out", ens_path, *argv],
                             "ensemble")
-        launches = day_kernel.launches
+        launches = read_launches("ensemble")
         ndays = calendar.days_in_year(cfg.start_year)
         m_cells = ENSEMBLE_MEMBERS * n
         if launches != ndays or w.widths != [m_cells] * ndays:
@@ -1560,7 +1813,7 @@ def closed_loop_path(tmp, dev, smi, argv=(), **cfg_kw):
             record["args"] = (a, kw)
             return record
         da.assimilate = keep
-        day_kernel.launches = 0
+        zero_launches()
         try:
             with KernelWidths() as w:
                 wall = _run_cli(["assimilate", "--config", path, "--members",
@@ -1569,7 +1822,7 @@ def closed_loop_path(tmp, dev, smi, argv=(), **cfg_kw):
                                  *argv], "assimilate")
         finally:
             da.assimilate = wrapped
-        launches = day_kernel.launches
+        launches = read_launches("assimilate")
         d_cells = DA_MEMBERS * n
         if launches != DA_DAYS or w.widths != [d_cells] * DA_DAYS:
             raise RuntimeError(f"assimilate: {launches} launches at widths "
@@ -1664,7 +1917,7 @@ def closed_loop_path(tmp, dev, smi, argv=(), **cfg_kw):
                 tmp, "fit.npz" if label == "per_cell" else "fit.json")
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
-            day_kernel.launches = 0
+            zero_launches()
             try:
                 wall = _run_cli(["calibrate", "--config", path, "--obs-twin",
                                  "0.4", "--fields", "hksat", "--days",
@@ -1678,7 +1931,7 @@ def closed_loop_path(tmp, dev, smi, argv=(), **cfg_kw):
             if dev.type == "cuda":
                 peak = torch.cuda.max_memory_allocated(dev)
                 card = torch.cuda.get_device_properties(dev).total_memory
-            fit_launches = day_kernel.launches
+            fit_launches = read_launches(f"calibrate {label}")
             if fit_launches != 0:
                 raise RuntimeError(f"calibrate {label}: the fit launched the "
                                    f"day kernel {fit_launches} times")
@@ -2130,12 +2383,12 @@ def zd09_matrix_leg(dev, kernel=True, **cfg_kw):
     geom = Geometry.from_layer_grid(lg)
     provider = zd09_debug.SyntheticForcingProvider(
         grid.n_padded, seed=0, lat=grid.cell_lat, device=dev)
-    day_kernel.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     found, prev, f_day, _, days = zd09_debug.scan(
         cfg, params, geom, state, provider, grid.n_land,
         max_days=ZD09_DEBUG_DAYS)
-    launches = day_kernel.launches
+    launches = read_launches("zd09_debug scan")
     rec = dict(launches=launches, cells=[grid.n_padded], days=days,
                seconds=time.perf_counter() - t0)
     if found is not None or launches != (days if kernel else 0):
@@ -2303,12 +2556,12 @@ def slab_path(tmp, flag, fblock, winter, dev, smi, kernel=True):
     out = dict(blocks={})
     for k in SLAB_COUNTS:
         parallel.collectives.clear()
-        day_kernel.launches = 0
+        zero_launches()
         got = block_step(sim.state, acc0, block, **frun,
                          **dict(flag.step_kwargs, devices=[dev] * k))
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        launches = day_kernel.launches
+        launches = read_launches(f"{k} slabs")
         census = dict(parallel.collectives)
         if launches != (SLAB_DAYS * k if kernel else 0):
             raise RuntimeError(f"{k} slabs: {launches} kernel launches in "
@@ -2362,7 +2615,7 @@ def slab_path(tmp, flag, fblock, winter, dev, smi, kernel=True):
     for k in (SLAB_COUNTS[0], 1):
         sim_k = Simulation(cfg, sim.params, land_grid=flag.land_grid,
                            devices=[dev] * k)
-        day_kernel.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         acc = sim_k.accumulators()
         acc, _ = sim_k.advance(sim_k.forcing_block(provider, YEARS[0], 1,
@@ -2370,7 +2623,7 @@ def slab_path(tmp, flag, fblock, winter, dev, smi, kernel=True):
         if dev.type == "cuda":
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = day_kernel.launches
+        launches = read_launches(f"Simulation on {k} slabs")
         if launches != (SLAB_RUN_DAYS * k if kernel else 0):
             raise RuntimeError(f"Simulation on {k} slabs: {launches} "
                                f"launches in {SLAB_RUN_DAYS} days")
@@ -2512,12 +2765,12 @@ def slab_loop_path(tmp, flag, dev, smi, kernel=True, **cfg_kw):
         want = _outputs(run(None))
         got = {}
         for k in LOOP_SLAB_COUNTS:
-            day_kernel.launches = 0
+            zero_launches()
             with CensusAtJoin() as census:
                 res = run([dev] * k)
                 if cuda:
                     torch.cuda.synchronize()
-            launches = day_kernel.launches
+            launches = read_launches(f"{label} on {k} slabs")
             joined = dict(parallel.collectives)
             if kernel and launches != days * k:
                 raise RuntimeError(f"{label} on {k} slabs: {launches} kernel "
@@ -2856,13 +3109,13 @@ def hot_climate(dev):
                                pr=torch.full_like(case.forcing.pr, 3.0e-4))
     state, cfg = case.state, case.cfg
     worst = torch.zeros_like(state.soil.zwt[0])
-    day_kernel.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     for _ in range(HOT_DAYS):
         state, diags = day_step(state, hot, case.params, case.geom, cfg.dt,
                                 cfg.nisurf, use_kernel=True)
         worst = torch.maximum(worst, diags["max_abs_residual"].max())
-    launches = day_kernel.launches
+    launches = read_launches("hot climate")
     seconds = time.perf_counter() - t0
     _all_finite("hot climate", [(f"state[{i}]", x) for i, x in
                                 enumerate(_state_leaves(state))])
@@ -3073,10 +3326,10 @@ def layer_year_path(tmp, dev, smi, flag_winter, argv=(),
     # The resident slabs at nl=10: bitwise the unsharded block.
     short = block.map(lambda x: x[:SLAB_DAYS])
     k = 3
-    day_kernel.launches = 0
+    zero_launches()
     got = block_step(sim.state, acc0, short, **run,
                      **dict(sim.step_kwargs(), devices=[dev] * k))
-    slab_launches = day_kernel.launches
+    slab_launches = read_launches(f"{LAYER_YEAR_NL}-layer slabs")
     whole = block_step(sim.state, acc0, short, **run, **sim.step_kwargs())
     _leaves_equal(f"{LAYER_YEAR_NL}-layer block on {k} slabs",
                   _state_leaves(got[0]) + _state_leaves(got[1]),
@@ -3246,14 +3499,14 @@ def main() -> None:
     acc0 = AnnualAccumulators.zeros(N_CELLS, torch.float32, dev)
     run = dict(params=case.params, geom=case.geom, dt=cfg.dt,
                nisurf=cfg.nisurf, zd09_every=cfg.zd09_every)
-    day_kernel.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     state, acc = block_step(case.state, acc0, block,
                             use_kernel=cfg.use_kernel, **run)
     means = annual_means(acc, cfg.nisurf)
     torch.cuda.synchronize()
     block_s = time.perf_counter() - t0
-    ref_launches = day_kernel.launches
+    ref_launches = read_launches("reference path")
     summary = check_block("reference path", state, means, REFERENCE_DAYS,
                           ref_launches)
     print(f"reference path: {REFERENCE_DAYS} days x {N_CELLS} cells in "
@@ -3322,14 +3575,14 @@ def main() -> None:
     facc0 = AnnualAccumulators.zeros(n, torch.float32, dev)
     frun = dict(params=sim.params, geom=sim.geom, dt=fcfg.dt,
                 nisurf=fcfg.nisurf)
-    day_kernel.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     winter, facc = block_step(sim.state, facc0, fblock, **frun,
                               **flag.step_kwargs)
     fmeans = annual_means(facc, fcfg.nisurf)
     torch.cuda.synchronize()
     block_s = time.perf_counter() - t0
-    flag_launches = day_kernel.launches
+    flag_launches = read_launches("flagship path")
     summary = check_block("flagship path", winter, fmeans, FLAGSHIP_DAYS,
                           flag_launches)
     print(f"flagship path: {FLAGSHIP_DAYS} days x {n} cells in "
@@ -3458,11 +3711,11 @@ def main() -> None:
         print(f"{label}: ok, 1 and {SLABS} slabs bitwise the unsharded "
               f"kernel day; max|sharded-plain| h2osoi {max(errs):.3e} mm")
     sblock = fblock.map(lambda x: x[:SHARDED_DAYS])
-    day_kernel.launches = 0
+    zero_launches()
     got = block_step(sim.state, facc0, sblock, **frun,
                      **dict(flag.step_kwargs, devices=[dev] * SLABS))
     torch.cuda.synchronize()
-    sharded_launches = day_kernel.launches
+    sharded_launches = read_launches("sharded flagship path")
     if sharded_launches != SHARDED_DAYS * SLABS:
         raise RuntimeError(
             f"sharded flagship path: {sharded_launches} kernel launches in "
@@ -3624,6 +3877,11 @@ def main() -> None:
         print(f"phase 19: {time.perf_counter() - t0:.1f} s ({smi})")
 
     lap("19")
+
+    # 20. The soil-heat kernel against its twin, and its time.
+    heat = soil_heat_path(dev, smi)
+
+    lap("20")
     print(f"phase seconds ({smi}): " + json.dumps(phase_s))
 
     common = dict(route="cuda",
@@ -3740,6 +3998,18 @@ def main() -> None:
              slabs=SLABS, one_slab_ms=fms["sharded_1"],
              resident_path="launches hydrology_day once a slab a day "
                            "(phase 17), not this launcher"),
+        dict(route="cuda", name="soil_heat",
+             source="hybrid9_tpu_torch/csrc/soil_heat.cu",
+             replaces=None,
+             fuses="hybrid9_tpu/physics/soiltemp.py, left to XLA's fusion",
+             launches=dict(HEAT_LAUNCHES),
+             max_abs_err=max(w["max_abs_err_k"]
+                             for w in heat["widths"].values()),
+             ms=heat["widths"]["ensemble nl=8"]["ms"],
+             plain_ms=heat["widths"]["ensemble nl=8"]["plain_ms"],
+             bound_ms=heat["widths"]["ensemble nl=8"]["bound_ms"],
+             bound_by="bytes", library_ms=None, widths=heat["widths"],
+             builds=heat["sweep"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,14 +4,17 @@ The sources in ``csrc/`` are compiled with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, at first
 use, into ``_build/`` beside this file; the library name carries a hash
 of the sources, flags and units, so an edited source is rebuilt and a
-stale library is never loaded.  A library may be built from several
-units of compilation, one source compiled with other macros (the day
+stale library is never loaded.  Each kernel is a library of its own, so
+an edit to one rebuilds only it.  A library may be built from several
+units of compilation, one source compiled with other arguments (the day
 kernel: one unit for its fixed builds and C entries, one for each
 register build of ``day_kernel_any``): every unit's ``nvcc`` runs at
 once, and the objects are linked into the one library.  The library is
 bound with ``ctypes``.  Ranks that start together build it once: the
 first takes a file lock and runs ``nvcc``, the others wait on the lock
-and load its library.
+and load its library.  What the kernels' wrappers share on the host is
+here too: the views a kernel takes (:func:`cell_stride`) and whether a
+call runs the kernel or its plain twin (:func:`kernel_wanted`).
 
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -28,11 +31,15 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 _SRC_DIR = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 DAY_KERNEL_SOURCE = _SRC_DIR / "day_kernel.cu"
+SOIL_HEAT_SOURCE = _SRC_DIR / "soil_heat.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: The register builds of ``day_kernel_any``, (C type, layer capacity,
@@ -50,8 +57,12 @@ ANY_BUILDS = (("float", 8, range(3, 9)), ("float", 10, range(9, 11)),
 DAY_KERNEL_UNITS = ((),) + tuple(
     (f"-DH9_ANY_REAL={real}", f"-DH9_ANY_CAP={cap}")
     for real, cap, _ in ANY_BUILDS)
+#: The soil-heat kernel's one unit: its arithmetic is the plain twin's
+#: operation for operation, so no multiply and add are contracted.
+SOIL_HEAT_UNITS = (("-fmad=false",),)
 
 _day_lib = None
+_soil_lib = None
 #: What the last build in this process printed and took:
 #: ``{"seconds": float, "log": str, "path": str, "units": {unit: seconds}}``
 #: (``seconds`` from the first ``nvcc`` to the linked library); empty if
@@ -75,12 +86,12 @@ def _nvcc() -> str:
 
 def build(name: str, sources, units=((),)) -> Path:
     """Compile each of ``sources`` once for every unit of ``units`` (a
-    tuple of macro definitions each) with ``NVCC_FLAGS``, all at once, and
-    link the objects into one library in ``_build/``; returns the
-    library's path and leaves the compiler's output in ``build_info`` and
-    ``build_logs``.  One process at a time builds a library (a lock file
-    beside it); one that finds the library built while it waited loads
-    that."""
+    tuple of further ``nvcc`` arguments each, such as macro definitions)
+    with ``NVCC_FLAGS``, all at once, and link the objects into one
+    library in ``_build/``; returns the library's path and leaves the
+    compiler's output in ``build_info`` and ``build_logs``.  One process
+    at a time builds a library (a lock file beside it); one that finds the
+    library built while it waited loads that."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     digest.update(repr(tuple(units)).encode())
     for src in sources:
@@ -176,3 +187,70 @@ def bind_day_kernel(path) -> ctypes.CDLL:
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+def soil_heat_lib() -> ctypes.CDLL:
+    """The soil-heat library (``csrc/soil_heat.cu``), built on first use,
+    with its C entry declared."""
+    global _soil_lib
+    if _soil_lib is None:
+        lib = ctypes.CDLL(str(build("h9soil", [SOIL_HEAT_SOURCE],
+                                    SOIL_HEAT_UNITS)))
+        fn = lib.h9_soil_heat
+        # dtype_bytes, cap, nl, soil_ice, latent_ramp, dt, ins, strides,
+        # outs, n, geom, geom_dev, scratch, stream
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_double, ctypes.c_double,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _soil_lib = lib
+    return _soil_lib
+
+
+def cell_stride(x: torch.Tensor, name: str, n: int, nl: Optional[int],
+                dtype, device, aligned: bool = True,
+                kernel: str = "day kernel") -> int:
+    """Elements from one cell of ``x`` to the next, for the kernel.  ``x``
+    is ``[n]`` (``nl=None``; any stride) or ``[n, nl]`` with contiguous
+    rows: a contiguous tensor, or a view such as ``y[lo:hi]`` of one.  With
+    ``aligned`` (a fixed build, which moves rows in 16-byte words) the rows
+    must also start on 16-byte addresses; ``day_kernel_any`` reads such a
+    row in 16-byte words and any other an element at a time.  Raises on
+    anything else, naming ``kernel``; nothing is copied."""
+    shape = (n,) if nl is None else (n, nl)
+    if x.shape != shape or x.dtype != dtype or x.device != device:
+        raise ValueError(
+            f"{kernel}: {name} is {tuple(x.shape)} {x.dtype} on "
+            f"{x.device}; expected {shape} {dtype} on {device}")
+    stride = x.stride(0) if n > 1 else (nl or 1)
+    if not 0 <= stride < 2 ** 31:
+        raise ValueError(f"{kernel}: {name} has cell stride {stride}")
+    if nl is not None:
+        if nl > 1 and x.stride(1) != 1:
+            raise ValueError(
+                f"{kernel}: the rows of {name} are not contiguous "
+                f"(strides {x.stride()}); pass [n, nl] as the model holds "
+                f"it")
+        item = x.element_size()
+        if aligned and (x.data_ptr() % 16 or (stride * item) % 16):
+            raise ValueError(
+                f"{kernel}: the rows of {name} do not start on 16-byte "
+                f"addresses (offset {x.data_ptr() % 16}, cell stride "
+                f"{stride * item} bytes)")
+    return stride
+
+
+def kernel_wanted(x: torch.Tensor, use_kernel: Optional[bool],
+                  kernel: str = "day kernel") -> bool:
+    """Whether a CUDA kernel runs on tensors like ``x``: ``use_kernel=None``
+    takes it for CUDA tensors and the plain twin for CPU tensors, ``True``
+    demands it (and raises on CPU tensors, naming ``kernel``), ``False``
+    takes the twin."""
+    if use_kernel is None:
+        return x.is_cuda
+    if use_kernel and not x.is_cuda:
+        raise ValueError(f"use_kernel=True needs CUDA tensors; the {kernel} "
+                         f"has no CPU form")
+    return bool(use_kernel)

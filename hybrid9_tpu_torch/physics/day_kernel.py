@@ -22,7 +22,7 @@ than the all-shared form, else on that form.  What the wrapper decides
 on the host is plain Python here and tested on the CPU: the instance
 (:func:`kernel_instance`), the residency it predicts
 (:func:`any_residency`), the grid (:func:`launch_grid`), the tensors it
-accepts (:func:`cell_stride`) and what it refuses of an instance
+accepts (``kernels.cell_stride``) and what it refuses of an instance
 (:func:`instance_residency`).
 
 ``hydrology_day_sharded`` is the port of
@@ -315,38 +315,6 @@ def any_residency(dtype, nl: int, form: int, n: int, with_imp: bool = True,
                 rounds=rounds(n, sms, warps, block))
 
 
-def cell_stride(x: torch.Tensor, name: str, n: int, nl: Optional[int],
-                dtype, device, aligned: bool = True) -> int:
-    """Elements from one cell of ``x`` to the next, for the kernel.  ``x``
-    is ``[n]`` (``nl=None``; any stride) or ``[n, nl]`` with contiguous
-    rows: a contiguous tensor, or a view such as ``y[lo:hi]`` of one.  With
-    ``aligned`` (a fixed build, which moves rows in 16-byte words) the rows
-    must also start on 16-byte addresses; ``day_kernel_any`` reads such a
-    row in 16-byte words and any other an element at a time.  Raises on
-    anything else; nothing is copied."""
-    shape = (n,) if nl is None else (n, nl)
-    if x.shape != shape or x.dtype != dtype or x.device != device:
-        raise ValueError(
-            f"day kernel: {name} is {tuple(x.shape)} {x.dtype} on "
-            f"{x.device}; expected {shape} {dtype} on {device}")
-    stride = x.stride(0) if n > 1 else (nl or 1)
-    if not 0 <= stride < 2 ** 31:
-        raise ValueError(f"day kernel: {name} has cell stride {stride}")
-    if nl is not None:
-        if nl > 1 and x.stride(1) != 1:
-            raise ValueError(
-                f"day kernel: the rows of {name} are not contiguous "
-                f"(strides {x.stride()}); pass [n, nl] as the model holds "
-                f"it")
-        item = x.element_size()
-        if aligned and (x.data_ptr() % 16 or (stride * item) % 16):
-            raise ValueError(
-                f"day kernel: the rows of {name} do not start on 16-byte "
-                f"addresses (offset {x.data_ptr() % 16}, cell stride "
-                f"{stride * item} bytes)")
-    return stride
-
-
 def instance_residency(lib, dtype, nl: int, with_imp: bool,
                        any_nl: bool = False, form: Optional[int] = None):
     """``(sms, blocks_per_sm, block, shared bytes a block)`` of a kernel
@@ -403,7 +371,7 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
 
     The kernel takes the state as the model holds it: layered fields
     ``[n, nl]``, contiguous or slab views ``x[lo:hi]`` (see
-    :func:`cell_stride`; anything else raises), and the raw forcing, from
+    ``kernels.cell_stride``; anything else raises), and the raw forcing, from
     which it forms ``derive_forcing``'s fields itself, bitwise.  The grid
     is :func:`launch_grid`'s, for the block of the instance
     (:func:`instance_residency`).  While spans are recorded the launch
@@ -446,8 +414,8 @@ def hydrology_day_cuda(soil: SoilState, veg: VegState, params: SoilParams,
                 f"the kernel has no backward; differentiate the plain day "
                 f"with use_kernel=False")
     strides = [0 if x is None else
-               cell_stride(x, name, n, nl if layered else None, dtype,
-                           device, aligned=form == FIXED)
+               kernels.cell_stride(x, name, n, nl if layered else None,
+                                   dtype, device, aligned=form == FIXED)
                for name, x, layered in ins]
     outs = [torch.empty((n, nl), dtype=dtype, device=device)
             for _ in range(2)] + \
@@ -514,13 +482,9 @@ def hydrology_day(soil: SoilState, veg: VegState, params: SoilParams,
 def _day_function(soil: SoilState, use_kernel: Optional[bool]):
     """The kernel wrapper or the plain twin, by ``use_kernel`` and the
     device of ``soil``."""
-    on_cuda = soil.h2osoi_liq.is_cuda
-    if use_kernel is None:
-        use_kernel = on_cuda
-    if use_kernel and not on_cuda:
-        raise ValueError("use_kernel=True needs CUDA tensors; the day "
-                         "kernel has no CPU form")
-    return hydrology_day_cuda if use_kernel else hydrology_day_plain
+    if kernels.kernel_wanted(soil.h2osoi_liq, use_kernel):
+        return hydrology_day_cuda
+    return hydrology_day_plain
 
 
 def slab_bounds(n: int, k: int) -> list:

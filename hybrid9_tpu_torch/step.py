@@ -40,7 +40,6 @@ from .physics.day_kernel import (hydrology_day, hydrology_day_plain,
                                  hydrology_day_sharded)
 from .physics.grow import grow_daily
 from .physics.hydrology import Geometry
-from .physics.layers import layer_tensor
 from .physics.lateral import (LateralParams, lateral_groundwater_step,
                               lateral_groundwater_step_split)
 from .physics.routing import (GridRouting, KinematicParams,
@@ -49,8 +48,8 @@ from .physics.routing import (GridRouting, KinematicParams,
                               route_kinematic_day, route_muskingum_day)
 from .physics.snow import (SnowParams, TwoLayerSnowParams, snow_step,
                            snow_step_two_layer)
-from .physics.soiltemp import (freeze_impedance, freeze_impedance_from_ice,
-                               phase_change, soil_temperature_step)
+from .physics.soil_heat import soil_heat, volumetric_water
+from .physics.soiltemp import freeze_impedance, freeze_impedance_from_ice
 from .state import AnnualAccumulators, Forcing, ModelState, SoilParams
 from .utils import profiling
 
@@ -108,7 +107,7 @@ def day_step(state: ModelState, forcing: Forcing, params: SoilParams,
     river, diags = _route(state.river_store, mid.diags, routing)
     soil = _lateral(mid.soil, lateral)
     return _after_routing(state, mid, river, soil, diags, params, geom,
-                          soil_ice, carbon)
+                          soil_ice, carbon, use_kernel)
 
 
 class _Midday(NamedTuple):
@@ -189,13 +188,16 @@ def _before_routing(state, forcing, params, geom, dt, nisurf,
 
 
 def _after_routing(state, mid: _Midday, river, soil, diags, params, geom,
-                   soil_ice: bool, carbon: bool):
+                   soil_ice: bool, carbon: bool, use_kernel=None):
     """The cell-local part of a day after routing and the lateral
-    exchange: soil heat and ice (span ``day.soil_heat``), and the carbon
-    cascade (``day.carbon``).  Returns the day's ``(state, diags)``."""
+    exchange: soil heat and ice (span ``day.soil_heat``, which names the
+    soil-heat kernel's build or ``plain``), and the carbon cascade
+    (``day.carbon``).  ``use_kernel`` as in ``day_step``.  Returns the
+    day's ``(state, diags)``."""
     with profiling.span("day.soil_heat", device=state.t_soil):
         t_soil, soil, ice = _soil_thermal(state, soil, params, mid.forcing,
-                                          geom, soil_ice, mid.sw_abs)
+                                          geom, soil_ice, mid.sw_abs,
+                                          use_kernel)
     cstate, rh, nee, cflux = _carbon(state.carbon, mid.vflux,
                                      mid.litterfall, t_soil, soil, params,
                                      geom, carbon)
@@ -240,12 +242,6 @@ def _grow(veg, soil, forcing, geom, vegetation: bool):
     return veg, z, z, {}
 
 
-def _theta(h2osoi: torch.Tensor, dz_soil) -> torch.Tensor:
-    """Volumetric water content ``[n, nl]`` of ``h2osoi`` (mm)."""
-    dz = layer_tensor(dz_soil, h2osoi.dtype, h2osoi.device)
-    return h2osoi / (dz[None, :] * c.RHOW / 1.0e3)
-
-
 def _carbon(carbon_state, vflux, litterfall, t_soil, soil, params, geom,
             enabled: bool):
     """Daily soil-carbon cascade (physics/carbon.py), or a no-op.  Runs on
@@ -259,7 +255,8 @@ def _carbon(carbon_state, vflux, litterfall, t_soil, soil, params, geom,
         production = (vflux["v_production"] if vflux
                       else torch.zeros_like(litterfall))
         return carbon_daily(carbon_state, production, litterfall, t_soil,
-                            _theta(soil.h2osoi_liq, geom.dz_soil),
+                            volumetric_water(soil.h2osoi_liq,
+                                             geom.dz_soil),
                             params.theta_s, return_fluxes=True)
 
 
@@ -380,39 +377,25 @@ def _lateral_slabs(slabs: DeviceSlabs, soils, lateral):
 
 
 def _soil_thermal(state, soil_new, params, forcing, geom, soil_ice: bool,
-                  sw_abs=None):
+                  sw_abs=None, use_kernel=None):
     """Daily implicit soil-heat step driven by the SW85 ground heat flux
     G = 0.2 * Rnet * exp(-0.7 * LAI) with the day-start LAI
     (HYDROLOGY.f90:335-339), plus an implicit sensible exchange through
-    the aerodynamic resistance raa.
+    the aerodynamic resistance raa (``physics/soil_heat.py``: one launch
+    of the soil-heat kernel on CUDA tensors, its plain twin on CPU
+    tensors or with ``use_kernel=False``).
 
     With ``soil_ice`` the solve runs with plain heat capacity (the
     day-start ice conducts and stores heat too) and the explicit phase
     change exchanges sensible heat for ice mass afterwards; otherwise
     freeze/thaw latent heat is approximated in the solve by the
     apparent-capacity band.  Returns ``(t_soil, soil, h2osoi_ice)``."""
-    lai = state.veg.lai
-    tas = forcing.tas
-    a = 0.92 if sw_abs is None else sw_abs
-    t2 = tas * tas              # tas ** 4 as JAX's integer_pow forms it
-    rnet = a * forcing.rsds + forcing.rlds - c.STBO * (t2 * t2)
-    g_flux = 0.2 * rnet * torch.exp(-0.7 * lai)
-    raa = torch.where(lai <= 4.0,
-                      0.25 * lai * 42.0 + 0.25 * (4.0 - lai) * 34.0, 42.0)
-    rho_air = forcing.ps / (c.RGAS * tas)
-    h_surf = rho_air * c.CP_AIR / bounds.maximum(raa, 1.0)
-    water = soil_new.h2osoi_liq
-    if soil_ice:
-        water = water + state.h2osoi_ice
-    t_soil = soil_temperature_step(
-        state.t_soil, _theta(water, geom.dz_soil), params.theta_s, g_flux,
-        geom.dz_soil, geom.zc_soil, c.SDAY, t_air=tas, h_surf=h_surf,
-        latent_ramp=0.0 if soil_ice else 2.0)
+    t_soil, liq, ice = soil_heat(
+        state.t_soil, soil_new.h2osoi_liq, state.h2osoi_ice, params.theta_s,
+        state.veg.lai, forcing, geom, c.SDAY, soil_ice,
+        0.0 if soil_ice else 2.0, sw_abs=sw_abs, use_kernel=use_kernel)
     if not soil_ice:
-        return t_soil, soil_new, state.h2osoi_ice
-    t_soil, liq, ice = phase_change(t_soil, soil_new.h2osoi_liq,
-                                    state.h2osoi_ice, params.theta_s,
-                                    geom.dz_soil)
+        return t_soil, soil_new, ice
     return t_soil, soil_new.replace(h2osoi_liq=liq), ice
 
 
@@ -421,7 +404,7 @@ def _accumulate(acc: AnnualAccumulators, state: ModelState,
                 dz_soil) -> AnnualAccumulators:
     """Daily accumulation into annual sums (HYBRID9.f90:235-253)."""
     h = state.soil.h2osoi_liq
-    theta = _theta(h, dz_soil)
+    theta = volumetric_water(h, dz_soil)
     return acc.replace(
         npp_sum=acc.npp_sum + diags["npp"],
         discharge_sum=acc.discharge_sum + diags["discharge"],
@@ -551,7 +534,7 @@ def slab_day_step(slabs: DeviceSlabs, states: list, forcings: list,
     soils = _lateral_slabs(slabs, [m.soil for m in mids], lateral)
     out = [_after_routing(st, m, river, soil,
                           dict(m.diags, discharge=dis), p, geom, soil_ice,
-                          carbon)
+                          carbon, cell.get("use_kernel"))
            for st, m, river, soil, dis, p in zip(states, mids, rivers, soils,
                                                  discharges, params)]
     return [o[0] for o in out], [o[1] for o in out]

@@ -29,7 +29,11 @@ focus cell the kernel writes that cell's water table after each substep
 that does not build and a launch the C entry refuses raise; two years of
 the hot climate run finite and conserving on the kernel.  A day's
 ``day.hydrology`` span holds its launch on the profiler's clock, and the
-closed loops make no host sync.
+closed loops make no host sync.  The soil-heat kernel (``csrc/soil_heat.cu``)
+is held to ``step._soil_thermal``'s plain twin at every build in float64
+and at 8 and 10 layers in float32, keeps each layer's water through the
+phase change, counts one launch a call, refuses what it does not take and
+reads slab views in place.
 """
 
 import pytest
@@ -589,3 +593,168 @@ def test_closed_loops_make_no_host_sync(record):
         profiling.record(False)
     assert bool(torch.isfinite(ens["evap"]).all())
     assert bool(torch.isfinite(da["theta_mean"]).all())
+
+
+def _heat_case(nl, dtype, regime="varied", n=4096, seed=0):
+    return chip_smoke.soil_heat_case(n, nl, dtype, torch.device("cuda", 0),
+                                     regime, seed=seed)
+
+
+def _soil_thermal(inputs, soil_ice, with_sw_abs, use_kernel):
+    """``step._soil_thermal`` on the inputs of :func:`_heat_case`, as
+    ``(t_soil, liq, ice)``."""
+    from types import SimpleNamespace
+
+    from hybrid9_tpu_torch.state import SoilState
+    from hybrid9_tpu_torch.step import _soil_thermal
+    liq, zero = inputs["liq"], torch.zeros_like(inputs["lai"])
+    state = SimpleNamespace(t_soil=inputs["t_soil"], h2osoi_ice=inputs["ice"],
+                            veg=SimpleNamespace(lai=inputs["lai"]))
+    soil = SoilState(h2osoi_liq=liq, zwt=zero, wa=zero, smp=liq,
+                     h2osoi_liq_ma=liq)
+    t_soil, soil, ice = _soil_thermal(
+        state, soil, SimpleNamespace(theta_s=inputs["theta_s"]),
+        inputs["forcing"], inputs["geom"], soil_ice,
+        inputs["sw_abs"] if with_sw_abs else None, use_kernel)
+    return t_soil, soil.h2osoi_liq, ice
+
+
+def _kernel_and_twin(inputs, soil_ice, with_sw_abs):
+    from hybrid9_tpu_torch.physics import soil_heat
+    before = soil_heat.launches
+    got = _soil_thermal(inputs, soil_ice, with_sw_abs, None)
+    assert soil_heat.launches == before + 1
+    want = _soil_thermal(inputs, soil_ice, with_sw_abs, False)
+    assert soil_heat.launches == before + 1
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_sw_abs", [True, False], ids=["sw_abs", "0.92"])
+@pytest.mark.parametrize("soil_ice", [False, True], ids=["band", "ice"])
+@pytest.mark.parametrize("nl", [3, 8, 10, 20, 32, 40])
+def test_soil_heat_kernel_matches_the_twin_in_float64(nl, soil_ice,
+                                                      with_sw_abs):
+    """The soil-heat kernel against ``_soil_thermal``'s plain twin
+    (``use_kernel=False``) on the same CUDA tensors, in float64, on
+    winter columns: every output within 1e-10 of the twin's largest
+    magnitude of it, at each build (capacities 8, 16 and 32, and the
+    run-time form above them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the soil-heat kernel has no CPU "
+                    "form")
+    got, want = _kernel_and_twin(_heat_case(nl, torch.float64, "winter"),
+                                 soil_ice, with_sw_abs)
+    out = chip_smoke.compare_soil_heat(got, want)
+    assert max(out["rel_gap"]) <= chip_smoke.SOIL_HEAT_F64_REL, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["winter", "varied"])
+@pytest.mark.parametrize("nl", [8, 10])
+def test_soil_heat_kernel_matches_the_twin_in_float32(nl, regime):
+    """In float32 the kernel does the twin's arithmetic operation for
+    operation, and is bitwise the twin on the varied state.  On the winter
+    state, where one ulp decides whether a layer's step crosses the
+    freezing band (and some 0.5 K follows), no layer takes the other side
+    (``chip_smoke.SOIL_HEAT_FLIP_K``) and every temperature is within
+    ``chip_smoke.SOIL_HEAT_F32_K`` of the twin's (PERF.md)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the soil-heat kernel has no CPU "
+                    "form")
+    for soil_ice in (False, True):
+        got, want = _kernel_and_twin(
+            _heat_case(nl, torch.float32, regime, n=65_536), soil_ice, True)
+        out = chip_smoke.compare_soil_heat(got, want)
+        if regime == "varied":
+            assert out["bitwise_cells"] == 1.0, out
+        assert out["flipped_layers"] == 0, out
+        assert out["t_gap_outside_flips"] <= chip_smoke.SOIL_HEAT_F32_K, out
+        assert max(out["rel_gap"][1:]) <= chip_smoke.SOIL_HEAT_F32_REL, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_soil_heat_kernel_keeps_each_layers_water(dtype):
+    """With the ice store the phase change only moves water between the
+    liquid and the ice: ``liq + ice`` of every layer is the day's to
+    within a few roundings."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the soil-heat kernel has no CPU "
+                    "form")
+    inputs = _heat_case(10, dtype, "winter")
+    _, liq, ice = _soil_thermal(inputs, True, True, None)
+    before = inputs["liq"] + inputs["ice"]
+    eps = torch.finfo(dtype).eps
+    assert bool(((liq + ice - before).abs() <= 4 * eps * before).all())
+    assert bool((ice >= 0).all()) and bool((liq > 0).all())
+
+
+@pytest.mark.cuda
+def test_soil_heat_kernel_refuses_what_it_does_not_take():
+    """Half precision, a layer count the day kernel does not take, an
+    operand of another layer count, rows that are not contiguous, and an
+    input that requires a gradient raise before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the soil-heat kernel has no CPU "
+                    "form")
+    from hybrid9_tpu_torch.physics import soil_heat
+    inputs = _heat_case(8, torch.float32, n=256)
+
+    def launch(**changes):
+        kw = dict(inputs, soil_ice=True, latent_ramp=0.0, **changes)
+        return soil_heat.soil_heat_cuda(**kw)
+
+    before = soil_heat.launches
+    half = {k: inputs[k].half() for k in ("t_soil", "liq", "ice", "theta_s",
+                                          "lai", "sw_abs")}
+    with pytest.raises(ValueError, match="no instance"):
+        launch(**half, forcing=inputs["forcing"].map(lambda x: x.half()))
+    with pytest.raises(ValueError, match="nl=2"):
+        launch(t_soil=inputs["t_soil"][:, :2], liq=inputs["liq"][:, :2],
+               ice=inputs["ice"][:, :2], theta_s=inputs["theta_s"][:, :2])
+    with pytest.raises(ValueError, match="theta_s is"):
+        launch(theta_s=torch.ones(256, 10, device=inputs["lai"].device))
+    layer_major = inputs["ice"].t().contiguous().t()
+    with pytest.raises(ValueError, match="rows of h2osoi_ice are not"):
+        launch(ice=layer_major)
+    with pytest.raises(RuntimeError, match="use_kernel=False"):
+        launch(theta_s=inputs["theta_s"].clone().requires_grad_())
+    assert soil_heat.launches == before
+    with torch.no_grad():
+        launch(theta_s=inputs["theta_s"].clone().requires_grad_())
+    assert soil_heat.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nl", [(torch.float32, 8),
+                                      (torch.float32, 10),
+                                      (torch.float64, 40)],
+                         ids=["float32-nl8", "float32-nl10", "float64-nl40"])
+def test_soil_heat_slab_views_go_in_without_a_copy(dtype, nl):
+    """A slab ``x[lo:hi]`` of every operand, and layered rows of a wider
+    tensor, are read in place: the slab's soil heat is bitwise the same
+    cells of the whole state's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the soil-heat kernel has no CPU "
+                    "form")
+    from hybrid9_tpu_torch.physics import soil_heat
+    inputs = _heat_case(nl, dtype, "winter", n=2048)
+    wide = torch.zeros(2048, nl + 3, dtype=dtype, device=inputs["lai"].device)
+    wide[:, 1:nl + 1] = inputs["theta_s"]
+    inputs["theta_s"] = wide[:, 1:nl + 1]
+    for soil_ice in (False, True):
+        kw = dict(soil_ice=soil_ice, latent_ramp=0.0 if soil_ice else 2.0)
+        whole = soil_heat.soil_heat_cuda(**inputs, **kw)
+        for lo, hi in ((0, 33), (31, 1055), (2047, 2048)):
+            def cut(x):
+                view = x[lo:hi]
+                assert view.data_ptr() == x.data_ptr() + lo * x.stride(0) \
+                    * x.element_size()
+                return view
+            part = soil_heat.soil_heat_cuda(**{
+                k: v.map(cut) if k == "forcing" else
+                cut(v) if isinstance(v, torch.Tensor) else v
+                for k, v in inputs.items()}, **kw)
+            for x, y in zip(part, whole):
+                assert torch.equal(x, y[lo:hi]), (soil_ice, lo, hi)

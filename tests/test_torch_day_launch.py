@@ -122,26 +122,27 @@ def _tensor(n, nl, dtype=torch.float32):
 def test_contiguous_tensors_and_slab_views_go_in_as_they_are(dtype, nl):
     x = _tensor(64, nl, dtype)
     dev = x.device
-    assert dk.cell_stride(x, "x", 64, nl, dtype, dev) == nl
+    assert kernels.cell_stride(x, "x", 64, nl, dtype, dev) == nl
     for lo, hi in ((0, 64), (5, 38), (63, 64), (1, 2)):
         view = x[lo:hi]
         assert view.data_ptr() == x.data_ptr() + lo * nl * x.element_size()
-        assert dk.cell_stride(view, "x", hi - lo, nl, dtype, dev) == nl
+        assert kernels.cell_stride(view, "x", hi - lo, nl, dtype, dev) == nl
     flat = x[:, 0]
-    assert dk.cell_stride(flat, "flat", 64, None, dtype, dev) == nl
-    assert dk.cell_stride(flat[3:9], "flat", 6, None, dtype, dev) == nl
+    assert kernels.cell_stride(flat, "flat", 64, None, dtype, dev) == nl
+    assert kernels.cell_stride(flat[3:9], "flat", 6, None, dtype, dev) == nl
 
 
 def test_rows_of_a_wider_tensor_go_in_if_aligned():
     wide = _tensor(32, 16)
     dev = wide.device
-    assert dk.cell_stride(wide[:, :8], "x", 32, 8, torch.float32, dev) == 16
-    assert dk.cell_stride(wide[:, 8:], "x", 32, 8, torch.float32, dev) == 16
-    assert dk.cell_stride(wide[::2, :8], "x", 16, 8, torch.float32, dev) == 32
+    f32 = torch.float32
+    assert kernels.cell_stride(wide[:, :8], "x", 32, 8, f32, dev) == 16
+    assert kernels.cell_stride(wide[:, 8:], "x", 32, 8, f32, dev) == 16
+    assert kernels.cell_stride(wide[::2, :8], "x", 16, 8, f32, dev) == 32
     with pytest.raises(ValueError, match="16-byte"):
-        dk.cell_stride(wide[:, 1:9], "x", 32, 8, torch.float32, dev)
+        kernels.cell_stride(wide[:, 1:9], "x", 32, 8, f32, dev)
     with pytest.raises(ValueError, match="16-byte"):
-        dk.cell_stride(_tensor(32, 10)[:, :8], "x", 32, 8, torch.float32, dev)
+        kernels.cell_stride(_tensor(32, 10)[:, :8], "x", 32, 8, f32, dev)
 
 
 @pytest.mark.parametrize("make,match", [
@@ -153,7 +154,8 @@ def test_rows_of_a_wider_tensor_go_in_if_aligned():
 ])
 def test_views_the_kernel_cannot_read_are_refused(make, match):
     with pytest.raises(ValueError, match=match):
-        dk.cell_stride(make(), "x", 32, 8, torch.float32, torch.device("cpu"))
+        kernels.cell_stride(make(), "x", 32, 8, torch.float32,
+                            torch.device("cpu"))
 
 
 def test_wrapper_refuses_cpu_tensors_before_anything_else():
@@ -351,15 +353,15 @@ def test_slab_views_of_10_layers_need_no_alignment_for_day_kernel_any():
     for lo, hi in ((0, 64), (1, 33), (31, 64), (63, 64)):
         view = x[lo:hi]
         assert view.data_ptr() % 16 == (8 if lo % 2 else 0)
-        assert dk.cell_stride(view, "x", hi - lo, 10, torch.float32,
-                              x.device, aligned=False) == 10
+        assert kernels.cell_stride(view, "x", hi - lo, 10, torch.float32,
+                                   x.device, aligned=False) == 10
         if lo % 2:
             with pytest.raises(ValueError, match="16-byte"):
-                dk.cell_stride(view, "x", hi - lo, 10, torch.float32,
-                               x.device)
+                kernels.cell_stride(view, "x", hi - lo, 10, torch.float32,
+                                    x.device)
     with pytest.raises(ValueError, match="rows of x are not contiguous"):
-        dk.cell_stride(_tensor(64, 20)[:, ::2], "x", 64, 10, torch.float32,
-                       x.device, aligned=False)
+        kernels.cell_stride(_tensor(64, 20)[:, ::2], "x", 64, 10,
+                            torch.float32, x.device, aligned=False)
 
 
 def test_grid_rounds_and_operations_at_10_layers():

@@ -167,6 +167,22 @@ def test_slab_day_spans(problem, recorder):
         + after * 2]
 
 
+@pytest.mark.parametrize("soil_ice", [False, True], ids=["band", "ice"])
+def test_soil_heat_span_names_its_instance(problem, recorder, soil_ice):
+    """On CPU tensors ``day.soil_heat`` names the plain twin that ran it,
+    with its layer count, dtype and ice mode, in a day and in each slab's
+    day."""
+    params, state, block, geom, _ = problem
+    _day(problem, soil_ice=soil_ice)
+    slabs = DeviceSlabs.create(N, ["cpu", "cpu"])
+    slab_day_step(slabs, slabs.put(state),
+                  slabs.put(block.map(lambda x: x[0])), slabs.put(params),
+                  geom, 86400.0 / NISURF, NISURF, soil_ice=soil_ice)
+    heat = [s.attrs for s in profiling.spans() if s.name == "day.soil_heat"]
+    assert heat == [dict(instance="plain", nl=8, dtype="float64",
+                         soil_ice=soil_ice)] * 3
+
+
 def test_an_exception_closes_its_span(recorder):
     with pytest.raises(ZeroDivisionError):
         with profiling.span("day"):
